@@ -7,46 +7,74 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Card and software: nvidia-smi name and power limit, torch/CUDA versions.
    Exits non-zero when torch.cuda.is_available() is false.
-2. Build the CUDA kernels (K1 forward, K2 backward) from
-   instantsplat_tpu_torch/csrc with nvcc for sm_90a; print ptxas's report.
+2. Build the CUDA kernels from instantsplat_tpu_torch/csrc with nvcc for
+   sm_90a, one nvcc per source, started together: rasterize.cu (K1 dense
+   forward, K2 dense backward) and rasterize_lists.cu (K3/K4 binned, K5/K6
+   tiled); print ptxas's report.
 3. Kernel against plain version at the golden-case shape (64x48, 400
-   splats) and a ragged mid size (250x187, 20k splats): K1's acc and tfin
-   within 5e-4, lc equal on >= 99.9% of pixels; K2's d(packed) within a
-   relative L2 of 1e-3 (and elementwise at the golden case).
+   splats) and a ragged mid size (250x187, 20k splats), for the dense
+   kernels and for the binned and tiled ones at capacities sized for the
+   splats, plus one deliberately overflowing capacity string each (kernel
+   and plain version walk the same lists, so they drop the same pairs):
+   acc and tfin within 5e-4, lc equal on >= 99.9% of pixels, d(packed)
+   within a relative L2 of 1e-3 (and elementwise at the golden case).
 4. Train: a synthetic 3-view sparse_3 scene (COLMAP text, points3D.ply,
    PNG images; 100k points, 512x384) through
    instantsplat_tpu_torch.cli.train.main for 200 iterations with
-   --pp_optimizer --optim_pose --sh_degree 3. The loss must fall and K1 and
-   K2 must each launch once per iteration.
-5. At the training shape, with the trained scene: K1/K2 against the plain
-   version once more, their CUDA-event times, the plain version's times,
-   and the least time the card could take (bytes over 3.35 TB/s,
-   operations over 67 TFLOP/s fp32).
+   --pp_optimizer --optim_pose --sh_degree 3, four times:
+   --backend pallas (K1 and K2 launch once per iteration), --backend auto
+   (prints which backend won; forward launches over K1/K3/K5 sum to 200),
+   pallas-tiled:CF:DY:DX and pallas-binned:CF:DL sized by the port's
+   tiled_/binned_view_requirements with headroom for the run: the larger
+   of the requirement on the initial scene and on the dense run's final
+   one (this scene's splats grow ~5x in 200 iterations), plus a margin.
+   K5 and K6, or K3 and K4, launch 200 times each; a demotion by the
+   overflow guard fails the run. A second dense run measures the
+   run-to-run spread. Every loss must fall and each curve must stay within
+   LOSS_RTOL of the dense run's.
+5. At the training shape, with the trained scene: each kernel against the
+   plain version once more, the kernels' CUDA-event times, the plain
+   version's times, and the least time the card could take (bytes over
+   3.35 TB/s, operations over 67 TFLOP/s fp32).
 
-The last lines are one JSON object {"kernels": [...]}, the nvidia-smi line,
-and {"ok": true, "device": {...}}.
+The last lines are one JSON object {"kernels": [...]} with six entries,
+the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # float operations per contributing (pixel, splat) pair, counted from
-# csrc/rasterize.cu (each exp/log1p counted as one operation)
+# csrc/rasterize.cu (each exp/log1p counted as one operation); the per-pair
+# bodies of csrc/rasterize_lists.cu's forward and backward are the same
+# statements, so K3/K5 count as K1 and K4/K6 as K2
 K1_OPS_PER_PAIR = 29
 K2_OPS_PER_PAIR = 57
 TRAIN_ITERS = 200
 N_POINTS = 100_000
 H, W = 384, 512
+SOURCES = ("rasterize.cu", "rasterize_lists.cu")
+# Loss curves of the other runs against the dense run: each logged loss
+# within 10% of the dense run's at the same iteration. Not tighter: the
+# backward kernels add with atomics in a varying order, and Adam (eps
+# 1e-15) turns last-bit differences of near-zero gradients into whole
+# steps, so two runs part within a few iterations; a second dense run
+# (phase 4) measures that spread, which reached 1.0e-2 on the H100.
+LOSS_RTOL = 0.1
+# Deliberately overflowing capacity strings for the kernel checks
+OVERFLOW = {"binned": "pallas-binned:1:2", "tiled": "pallas-tiled:1:1:1"}
 
 
 def fail(msg: str):
@@ -171,32 +199,47 @@ def write_scene(root: Path, seed: int = 0):
 # --------------------------------------------------------------------------
 
 
-def plain_forward_backward(packed, g_acc, g_tfin, height, width):
-    """Plain version's (acc, tfin, lc) and d(packed) for the cotangents."""
-    import torch
-
-    from instantsplat_tpu_torch.ops.rasterize import composite_plain
-
-    p = packed.detach().clone().requires_grad_(True)
-    acc, tfin, lc = composite_plain(p, height, width)
-    (grad,) = torch.autograd.grad(
-        (acc * g_acc).sum() + (tfin * g_tfin).sum(), [p])
-    return acc.detach(), tfin.detach(), lc, grad
-
-
-def kernel_forward_backward(packed, g_acc, g_tfin, height, width):
+def backend_paths(backend: str, packed, height, width):
+    """(kernel names, plain(p) -> (acc, tfin, lc), kernel fwd(), kernel
+    bwd(g_acc, gtu, tfin, lc), lists) for the dense backend "pallas" or a
+    capacity backend string; the list backends build their lists once, so
+    the kernel and the plain version walk the same ones."""
+    from instantsplat_tpu_torch.ops import rasterize_lists as RL
     from instantsplat_tpu_torch.ops import rasterize_pallas as RP
+    from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
+    from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
+    from instantsplat_tpu_torch.ops.rasterize import composite_plain
+    from instantsplat_tpu_torch.render import driver
 
-    rect, batch = RP.splat_rects(packed, height, width)
-    acc, tfin, lc = RP.k1_forward(packed, rect, batch, height, width)
-    grad = RP.k2_backward(packed, rect, batch, g_acc, (g_tfin * tfin)
-                          .contiguous(), tfin, lc)
-    return acc, tfin, lc, grad
+    if backend == "pallas":
+        rect, batch = RP.splat_rects(packed, height, width)
+        return (("K1", "K2"),
+                lambda p: composite_plain(p, height, width),
+                lambda: RP.k1_forward(packed, rect, batch, height, width),
+                lambda ga, gtu, tf, lc: RP.k2_backward(packed, rect, batch,
+                                                       ga, gtu, tf, lc),
+                None)
+    if backend.startswith("pallas-binned"):
+        lists, geom = RB.bin_lists(packed, height, width,
+                                   *driver._parse_binned_caps(backend))
+        names, fwd, bwd = ("K3", "K4"), RB.K3, RB.K4
+    else:
+        lists, geom = RT.tile_lists(packed, height, width,
+                                    *driver._parse_tiled_caps(backend))
+        names, fwd, bwd = ("K5", "K6"), RT.K5, RT.K6
+    return (names,
+            lambda p: RL.composite_lists_plain(p, lists, geom, height, width),
+            lambda: RL.lists_forward(fwd, packed, lists, geom, height, width),
+            lambda ga, gtu, tf, lc: RL.lists_backward(bwd, packed, lists,
+                                                      geom, ga, gtu, tf, lc),
+            lists)
 
 
-def compare(tag, packed, height, width, seed, elementwise):
-    """Hold K1/K2 against the plain version on the same inputs; returns the
-    max abs differences (K1 acc/tfin, K2 d(packed))."""
+def compare(tag, packed, height, width, seed, elementwise,
+            backend="pallas"):
+    """Hold a backend's forward and backward kernels against the plain
+    version on the same inputs; returns the max abs differences (forward
+    acc/tfin, backward d(packed))."""
     import numpy as np
     import torch
 
@@ -207,36 +250,80 @@ def compare(tag, packed, height, width, seed, elementwise):
     g_acc[3] *= 1e-2  # depth cotangent at a scale like the colors'
     g_tfin = torch.as_tensor(rng.normal(size=(height, width)),
                              dtype=torch.float32, device=dev)
-    acc_p, tfin_p, lc_p, grad_p = plain_forward_backward(
-        packed, g_acc, g_tfin, height, width)
-    acc_k, tfin_k, lc_k, grad_k = kernel_forward_backward(
-        packed, g_acc, g_tfin, height, width)
+    (kf, kb), plain, k_fwd, k_bwd, lists = backend_paths(
+        backend, packed, height, width)
+    p = packed.detach().clone().requires_grad_(True)
+    acc_p, tfin_p, lc_p = plain(p)
+    (grad_p,) = torch.autograd.grad(
+        (acc_p * g_acc).sum() + (tfin_p * g_tfin).sum(), [p])
+    acc_k, tfin_k, lc_k = k_fwd()
+    grad_k = k_bwd(g_acc, (g_tfin * tfin_k).contiguous(), tfin_k, lc_k)
     torch.cuda.synchronize()
-    e_acc = (acc_k - acc_p).abs().max().item()
-    e_tfin = (tfin_k - tfin_p).abs().max().item()
+    e_acc = (acc_k - acc_p.detach()).abs().max().item()
+    e_tfin = (tfin_k - tfin_p.detach()).abs().max().item()
     lc_eq = (lc_k.long() == lc_p).float().mean().item()
     rel_l2 = ((grad_k - grad_p).norm() / grad_p.norm().clamp(min=1e-30)
               ).item()
     e_grad = (grad_k - grad_p).abs().max().item()
-    log(f"{tag}: N={packed.shape[0]} {width}x{height} K1 acc max|d|={e_acc:.3e}"
-        f" tfin max|d|={e_tfin:.3e} lc equal={lc_eq * 100:.4f}% | K2 "
-        f"d(packed) rel L2={rel_l2:.3e} max|d|={e_grad:.3e} "
-        f"(max|ref|={grad_p.abs().max().item():.3e})")
+    lists_note = "" if lists is None else (
+        f" [{backend}: overflow={bool(lists.overflow)}, "
+        f"{int(lists.seg_count.sum())} list entries]")
+    log(f"{tag}{lists_note}: N={packed.shape[0]} {width}x{height} {kf} acc "
+        f"max|d|={e_acc:.3e} tfin max|d|={e_tfin:.3e} lc equal="
+        f"{lc_eq * 100:.4f}% | {kb} d(packed) rel L2={rel_l2:.3e} "
+        f"max|d|={e_grad:.3e} (max|ref|={grad_p.abs().max().item():.3e})")
     if not (e_acc <= 5e-4 and e_tfin <= 5e-4):
-        fail(f"{tag}: K1 differs from the plain version beyond 5e-4")
+        fail(f"{tag}: {kf} differs from the plain version beyond 5e-4")
     if lc_eq < 0.999:
-        fail(f"{tag}: K1 last-contributor index equal on only "
+        fail(f"{tag}: {kf} last-contributor index equal on only "
              f"{lc_eq * 100:.3f}% of pixels (< 99.9%)")
     if not rel_l2 <= 1e-3:
-        fail(f"{tag}: K2 gradient relative L2 {rel_l2:.3e} > 1e-3")
+        fail(f"{tag}: {kb} gradient relative L2 {rel_l2:.3e} > 1e-3")
     if elementwise:
         # the JAX suite's kernel-vs-golden gradient tolerance
         # (tests/test_golden.py: rtol 5e-3, atol 1e-5)
         bad = (grad_k - grad_p).abs() > 1e-5 + 5e-3 * grad_p.abs()
         if bool(bad.any()):
-            fail(f"{tag}: {int(bad.sum())} K2 gradient entries outside "
+            fail(f"{tag}: {int(bad.sum())} {kb} gradient entries outside "
                  "rtol 5e-3 / atol 1e-5")
     return e_acc, e_grad
+
+
+def sized_backends(packed, height, width, headroom=(0, 0, 0)):
+    """{"binned": "pallas-binned:CF:DL", "tiled": "pallas-tiled:CF:DY:DX"}
+    sized by the port's requirements for these splats, plus `headroom`
+    added to (cap_factor, level, level)."""
+    from instantsplat_tpu_torch.ops import rasterize_lists as RL
+    from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
+    from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
+
+    cols = (packed[:, :2], packed[:, 2:5], packed[:, 5],
+            RL.splat_valid(packed))
+    cf, dl = RB.bin_requirements(*cols, height, width)
+    tcf, dy, dx = RT.tile_requirements(*cols, height, width)
+    hc, hl, hx = headroom
+    return {"binned": f"pallas-binned:{cf + hc}:{dl + hl}",
+            "tiled": f"pallas-tiled:{tcf + hc}:{dy + hl}:{dx + hx}"}
+
+
+def compare_all(tag, packed, height, width, seed, elementwise,
+                overflow=False):
+    """The dense, binned and tiled kernels against the plain version; with
+    `overflow`, also the deliberately overflowing strings. -> {kernel
+    name: (forward err, backward err)} of the sized strings."""
+    errs = {"dense": compare(tag, packed, height, width, seed, elementwise)}
+    for kind, backend in sized_backends(packed, height, width).items():
+        errs[kind] = compare(tag, packed, height, width, seed, elementwise,
+                             backend)
+    if overflow:
+        for kind, backend in OVERFLOW.items():
+            (_, _, _, _, lists) = backend_paths(backend, packed, height,
+                                                width)
+            if not bool(lists.overflow):
+                fail(f"{tag}: {backend} was meant to overflow and did not")
+            compare(tag + " overflowing", packed, height, width, seed,
+                    elementwise, backend)
+    return errs
 
 
 # --------------------------------------------------------------------------
@@ -343,6 +430,139 @@ def profile_iterations(params, cam, dev, iters: int = 10):
             f"{name[:110]}")
 
 
+def kernel_table():
+    """{name: Kernel} of the six kernels, in order."""
+    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
+    from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
+    from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
+
+    return {"K1": RP.K1, "K2": RP.K2, "K3": RB.K3, "K4": RB.K4,
+            "K5": RT.K5, "K6": RT.K6}
+
+
+class _Tee:
+    """stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+class _Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def train_run(scene: Path, out: Path, backend: str, log_every: int):
+    """One 200-iteration training run through the CLI. -> (params,
+    history, launches {K1..K6}, seconds, the trainer's "backend auto"
+    lines, the overflow guard's demotion warnings)."""
+    import contextlib
+
+    import torch
+
+    from instantsplat_tpu_torch.cli import train as train_cli
+    from instantsplat_tpu_torch.render import driver
+
+    # each run starts with no capacity signature checked or demoted
+    driver._guard = driver._OverflowGuard()
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    tee = _Tee(sys.stdout)
+    warns = _Warnings()
+    guard_log = logging.getLogger("instantsplat_tpu_torch.render.driver")
+    guard_log.addHandler(warns)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(tee):
+            params, history = train_cli.main([
+                "-s", str(scene), "-m", str(out), "--n_views", "3",
+                "--iterations", str(TRAIN_ITERS), "--pp_optimizer",
+                "--optim_pose", "--sh_degree", "3", "--log_every",
+                str(log_every), "--backend", backend, "--quiet"])
+        torch.cuda.synchronize()
+    finally:
+        guard_log.removeHandler(warns)
+    seconds = time.time() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    auto_lines = [ln for ln in "".join(tee.text).splitlines()
+                  if "backend auto" in ln]
+    return params, history, launches, seconds, auto_lines, warns.messages
+
+
+def check_run(tag, history, launches, seconds, demotions, log_every,
+              dense_losses=None):
+    """Losses finite and falling, the history complete, no demotion, and
+    (with dense_losses) the curve within LOSS_RTOL of the dense run's.
+    -> steady ms/iter over the last 100 iterations."""
+    losses = {it: m["loss"] for it, m in history}
+    elapsed = {it: m["elapsed_s"] for it, m in history}
+    steady_ms = (elapsed[TRAIN_ITERS] - elapsed[TRAIN_ITERS - 100]) * 10.0
+    its = sorted(losses)
+    log(f"train {tag}: {len(history)} logged iterations in {seconds:.1f} s "
+        f"(scene read, KNN and artifacts included); loss "
+        f"{losses[its[0]]:.5f} -> {losses[its[-1]]:.5f}; steady "
+        f"{steady_ms:.2f} ms/iter over the last 100 = "
+        f"{H * W / (steady_ms / 1e3) / 1e6:.2f} Mpix/s; launches {launches}")
+    for msg in demotions:
+        log(f"train {tag}: overflow guard: {msg}")
+    if len(history) != TRAIN_ITERS // log_every:
+        fail(f"{tag}: history has {len(history)} entries, expected "
+             f"{TRAIN_ITERS // log_every}")
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"{tag}: non-finite loss")
+    if not losses[its[-1]] < losses[its[0]]:
+        fail(f"{tag}: the loss did not fall")
+    if dense_losses is not None:
+        rel = max(abs(losses[it] - dense_losses[it]) / dense_losses[it]
+                  for it in its)
+        log(f"train {tag}: loss curve against the dense run: max relative "
+            f"difference {rel:.3e} over {len(its)} logged iterations "
+            f"(limit {LOSS_RTOL:g}); first logged iteration "
+            f"{abs(losses[its[0]] - dense_losses[its[0]]) / dense_losses[its[0]]:.3e}")
+        if not rel <= LOSS_RTOL:
+            fail(f"{tag}: loss curve differs from the dense run's by "
+                 f"{rel:.3e} > {LOSS_RTOL:g}")
+    return steady_ms
+
+
+def initial_params(scene: Path, dev):
+    """The Gaussians and cameras run_training starts from."""
+    from instantsplat_tpu_torch.data.scene import read_scene
+    from instantsplat_tpu_torch.models.gaussians import GaussianModel
+
+    info = read_scene(scene, 3, device=dev)
+    params = GaussianModel.create_from_pcd(
+        info.points, info.colors,
+        cam_poses=GaussianModel.init_cam_poses_from_w2c(info.poses_w2c),
+        max_sh_degree=3, device=dev)
+    return params, info.cameras
+
+
+def view_requirements(params, cameras):
+    """Elementwise maxima over the views of the port's binned and tiled
+    requirements (drift margin included)."""
+    from instantsplat_tpu_torch.render import driver
+
+    b = [driver.binned_view_requirements(params, params.get_pose(c.uid), c)
+         for c in cameras]
+    t = [driver.tiled_view_requirements(params, params.get_pose(c.uid), c)
+         for c in cameras]
+    return tuple(map(max, zip(*b))), tuple(map(max, zip(*t)))
+
+
 def main():
     import numpy as np
     import torch
@@ -350,7 +570,8 @@ def main():
     # ---- phase 1: card ---------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
-    if not (REPO / "instantsplat_tpu_torch" / "csrc" / "rasterize.cu").is_file():
+    csrc = REPO / "instantsplat_tpu_torch" / "csrc"
+    if not all((csrc / src).is_file() for src in SOURCES):
         fail(f"instantsplat_tpu_torch/ not found beside {__file__}")
     sys.path.insert(0, str(REPO))
     smi = subprocess.run(
@@ -366,69 +587,103 @@ def main():
     dev = torch.device("cuda")
 
     from instantsplat_tpu_torch.ops import cuda_build
-    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
 
-    # ---- phase 2: build --------------------------------------------------
+    # ---- phase 2: build, one nvcc per source, all started together -------
     t0 = time.time()
-    lib = cuda_build.build("rasterize.cu")
-    log(f"built {lib.relative_to(REPO)} in {time.time() - t0:.1f} s")
-    for line in cuda_build.ptxas_report("rasterize.cu").splitlines():
-        if "Used" in line or "spill" in line or "Compiling" in line:
-            log(f"ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(cuda_build.build, SOURCES))
+    log(f"built {', '.join(str(lib.relative_to(REPO)) for lib in libs)} in "
+        f"{time.time() - t0:.1f} s")
+    for src in SOURCES:
+        for line in cuda_build.ptxas_report(src).splitlines():
+            if "Used" in line or "spill" in line or "Compiling" in line:
+                log(f"ptxas {src}: {line.strip()}")
 
-    # ---- phase 3: kernel against plain version ---------------------------
-    compare("golden-case shape", blob_splats(400, 48, 64, 42, dev), 48, 64,
-            seed=1, elementwise=True)
-    compare("ragged mid size", blob_splats(20_000, 187, 250, 7, dev), 187,
-            250, seed=2, elementwise=False)
+    # ---- phase 3: kernels against plain version --------------------------
+    compare_all("golden-case shape", blob_splats(400, 48, 64, 42, dev), 48,
+                64, seed=1, elementwise=True)
+    compare_all("ragged mid size", blob_splats(20_000, 187, 250, 7, dev),
+                187, 250, seed=2, elementwise=False, overflow=True)
 
     # ---- phase 4: train --------------------------------------------------
-    from instantsplat_tpu_torch.cli import train as train_cli
-
     with tempfile.TemporaryDirectory() as tmp:
-        scene, out = Path(tmp) / "scene", Path(tmp) / "out"
+        scene = Path(tmp) / "scene"
         write_scene(scene)
         log(f"scene: {N_POINTS} points, 3 views {W}x{H}, PNG images")
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        RP.K1.launches = RP.K2.launches = 0
-        t_train = time.time()
-        params, history = train_cli.main([
-            "-s", str(scene), "-m", str(out), "--n_views", "3",
-            "--iterations", str(TRAIN_ITERS), "--pp_optimizer",
-            "--optim_pose", "--sh_degree", "3", "--log_every", "1",
-            "--quiet"])
-        torch.cuda.synchronize()
-        t_train = time.time() - t_train
-        launches = {"K1": RP.K1.launches, "K2": RP.K2.launches}
+        params, history, launches, secs, _, dem = train_run(
+            scene, Path(tmp) / "dense", "pallas", 1)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steady = {"dense": check_run("dense (--backend pallas)", history,
+                                     launches, secs, dem, 1)}
+        log(f"train dense: peak memory {peak_gb:.2f} GB")
+        out = Path(tmp) / "dense"
         for rel in ("point_cloud/iteration_200/point_cloud.ply",
                     "pose/ours_200/pose_optimized.npy", "cameras.json",
                     "cfg_args", "train_time.txt", "scalars.jsonl"):
             if not (out / rel).is_file():
                 fail(f"training artifact missing: {rel}")
-        from instantsplat_tpu_torch.data.scene import read_scene
+        if launches != {"K1": TRAIN_ITERS, "K2": TRAIN_ITERS, "K3": 0,
+                        "K4": 0, "K5": 0, "K6": 0}:
+            fail(f"dense run: kernel launches {launches} != {TRAIN_ITERS} "
+                 "each of K1 and K2")
+        # launches of each kernel on its own path's run
+        path_launches = {"K1": launches["K1"], "K2": launches["K2"]}
+        dense_losses = {it: m["loss"] for it, m in history}
 
-        cam = read_scene(scene, 3, device=dev).cameras[0]
-    losses = [m["loss"] for _, m in history]
-    elapsed = {it: m["elapsed_s"] for it, m in history}
-    steady_ms = (elapsed[TRAIN_ITERS] - elapsed[TRAIN_ITERS - 100]) * 10.0
-    log(f"train: {len(history)} iterations in {t_train:.1f} s (scene read, "
-        f"KNN and artifacts included); loss {losses[0]:.5f} -> "
-        f"{losses[-1]:.5f}; steady {steady_ms:.2f} ms/iter over the last 100 "
-        f"= {H * W / (steady_ms / 1e3) / 1e6:.2f} Mpix/s; launches {launches};"
-        f" peak memory {peak_gb:.2f} GB")
-    if len(history) != TRAIN_ITERS:
-        fail(f"history has {len(history)} entries, expected {TRAIN_ITERS}")
-    if not all(math.isfinite(v) for v in losses):
-        fail("non-finite loss")
-    if not losses[-1] < losses[0]:
-        fail("the loss did not fall")
-    if launches != {"K1": TRAIN_ITERS, "K2": TRAIN_ITERS}:
-        fail(f"kernel launches {launches} != {TRAIN_ITERS} each")
+        p0, cams = initial_params(scene, dev)
+        (bcf, bdl), (tcf, tdy, tdx) = view_requirements(p0, cams)
+        (fbcf, fbdl), (ftcf, ftdy, ftdx) = view_requirements(params, cams)
+        log(f"requirements over the 3 views (margin included): initial "
+            f"binned {bcf}:{bdl} tiled {tcf}:{tdy}:{tdx}; after the dense "
+            f"run binned {fbcf}:{fbdl} tiled {ftcf}:{ftdy}:{ftdx}")
+        cam = cams[0]
+        del p0
+
+        _, history, launches, secs, _, dem = train_run(
+            scene, Path(tmp) / "dense2", "pallas", 1)
+        check_run("dense, second run", history, launches, secs, dem, 1,
+                  dense_losses)
+
+        # auto: the probe times 10-iteration blocks, as with log_every 100
+        _, history, launches, secs, auto_lines, dem = train_run(
+            scene, Path(tmp) / "auto", "auto", 10)
+        for ln in auto_lines:
+            log(f"train auto: trainer said: {ln.strip()}")
+        steady["auto"] = check_run("auto", history, launches, secs, dem, 10,
+                                   dense_losses)
+        fwd = launches["K1"] + launches["K3"] + launches["K5"]
+        bwd = launches["K2"] + launches["K4"] + launches["K6"]
+        if fwd != TRAIN_ITERS or bwd != TRAIN_ITERS:
+            fail(f"auto run: forward launches {fwd}, backward {bwd}, "
+                 f"expected {TRAIN_ITERS} each ({launches})")
+        won = ("dense" if launches["K1"] > TRAIN_ITERS // 2 else
+               "tiled" if launches["K5"] > TRAIN_ITERS // 2 else "binned")
+        log(f"train auto: backend that ran most iterations: {won}")
+
+        # explicit strings: sized on the initial scene, with headroom for
+        # the drift of the whole run (as large as the dense run's)
+        explicit = {
+            "tiled": (f"pallas-tiled:{max(tcf, ftcf) + 1}:"
+                      f"{max(tdy, ftdy) + 2}:{max(tdx, ftdx) + 1}",
+                      ("K5", "K6")),
+            "binned": (f"pallas-binned:{max(bcf, fbcf) + 1}:"
+                       f"{max(bdl, fbdl) + 4}", ("K3", "K4"))}
+        for kind, (backend, (kf, kb)) in explicit.items():
+            _, history, launches, secs, _, dem = train_run(
+                scene, Path(tmp) / kind, backend, 1)
+            steady[kind] = check_run(f"{kind} ({backend})", history,
+                                     launches, secs, dem, 1, dense_losses)
+            if dem:
+                fail(f"{kind} run: the overflow guard demoted {backend}")
+            if launches[kf] != TRAIN_ITERS or launches[kb] != TRAIN_ITERS:
+                fail(f"{kind} run: {kf}/{kb} launched {launches[kf]}/"
+                     f"{launches[kb]} times, expected {TRAIN_ITERS}")
+            path_launches.update({kf: launches[kf], kb: launches[kb]})
+        log("steady ms/iter by backend: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in steady.items()))
 
     # ---- phase 5: the training shape, trained scene ----------------------
-    from instantsplat_tpu_torch.ops.losses import photometric_loss
     from instantsplat_tpu_torch.render.driver import prepare_packed_splats
 
     with torch.no_grad():
@@ -436,61 +691,71 @@ def main():
             params, params.get_pose(0), cam.fx, cam.fy, cam.cx, cam.cy, 1.0,
             params.max_sh_degree, H, W)
     packed = packed.contiguous()
-    e_acc, e_grad = compare("training shape", packed, H, W, seed=3,
-                            elementwise=False)
-    # real cotangents: the photometric loss of this view (black background)
-    p = packed.clone().requires_grad_(True)
-    acc, tfin = RP.composite_packed(p, H, W)
-    rgb = acc[:3].permute(1, 2, 0) + tfin[:, :, None] * torch.zeros(3,
-                                                                  device=dev)
-    loss, _ = photometric_loss(rgb, cam.image)
-    g_acc, g_tfin = torch.autograd.grad(loss, [acc, tfin])
-    g_acc = g_acc.contiguous()
-    rect, batch = RP.splat_rects(packed, H, W)
-    acc_k, tfin_k, lc_k = RP.k1_forward(packed, rect, batch, H, W)
-    gtu = (g_tfin * tfin_k).contiguous()
-    k1_ms = cuda_ms(lambda: RP.k1_forward(packed, rect, batch, H, W), 20)
-    k2_ms = cuda_ms(lambda: RP.k2_backward(packed, rect, batch, g_acc, gtu,
-                                           tfin_k, lc_k), 20)
-    from instantsplat_tpu_torch.ops.rasterize import composite_plain
-
-    with torch.no_grad():
-        plain_fwd_ms = cuda_ms(lambda: composite_plain(packed, H, W), 1, 1)
-    pg = packed.clone().requires_grad_(True)
-    acc_p, tfin_p, _ = composite_plain(pg, H, W)
-    obj = (acc_p * g_acc).sum() + (tfin_p * g_tfin).sum()
-    plain_bwd_ms = cuda_ms(
-        lambda: torch.autograd.grad(obj, [pg], retain_graph=True), 1, 0)
+    errs = compare_all("training shape", packed, H, W, seed=3,
+                       elementwise=False)
     pairs = contributing_pairs(packed, H, W)
     n = packed.shape[0]
-    k1_bytes, k2_bytes = 40 * n + 24 * H * W, 80 * n + 28 * H * W
+    sized = sized_backends(packed, H, W)
+    rng = np.random.default_rng(4)
+    g_acc = torch.as_tensor(rng.normal(size=(4, H, W)), dtype=torch.float32,
+                            device=dev)
+    g_tfin = torch.as_tensor(rng.normal(size=(H, W)), dtype=torch.float32,
+                             device=dev)
 
     def bound(nbytes, ops):
         t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
         return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
-    b1, by1 = bound(k1_bytes, pairs * K1_OPS_PER_PAIR)
-    b2, by2 = bound(k2_bytes, pairs * K2_OPS_PER_PAIR)
-    log(f"training shape: {pairs} contributing (pixel, splat) pairs; K1 "
-        f"{k1_ms:.4f} ms (plain fwd {plain_fwd_ms:.2f} ms, bound {b1:.5f} ms "
-        f"by {by1}); K2 {k2_ms:.4f} ms (plain bwd {plain_bwd_ms:.2f} ms, "
-        f"bound {b2:.5f} ms by {by2})")
+    rows = []
+    sources = {"dense": ("rasterize.cu", "rasterize_pallas.py", 145, 265),
+               "binned": ("rasterize_lists.cu", "rasterize_pallas_binned.py",
+                          202, 270),
+               "tiled": ("rasterize_lists.cu", "rasterize_pallas_tiled.py",
+                         218, 291)}
+    for kind in ("dense", "binned", "tiled"):
+        backend = "pallas" if kind == "dense" else sized[kind]
+        (kf, kb), plain, k_fwd, k_bwd, lists = backend_paths(
+            backend, packed, H, W)
+        acc_k, tfin_k, lc_k = k_fwd()
+        gtu = (g_tfin * tfin_k).contiguous()
+        f_ms = cuda_ms(k_fwd, 20)
+        b_ms = cuda_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
+        with torch.no_grad():
+            plain_f_ms = cuda_ms(lambda: plain(packed), 1, 1)
+        pg = packed.clone().requires_grad_(True)
+        acc_p, tfin_p, _ = plain(pg)
+        obj = (acc_p * g_acc).sum() + (tfin_p * g_tfin).sum()
+        plain_b_ms = cuda_ms(
+            lambda: torch.autograd.grad(obj, [pg], retain_graph=True), 1, 0)
+        del pg, acc_p, tfin_p, obj
+        if lists is None:
+            f_bytes, b_bytes = 40 * n + 24 * H * W, 80 * n + 28 * H * W
+            note = ""
+        else:
+            entries = int(lists.seg_count.sum())
+            tables = 8 * lists.seg_count.shape[0]
+            f_bytes = 40 * n + 4 * entries + tables + 24 * H * W
+            b_bytes = 80 * n + 4 * entries + tables + 28 * H * W
+            note = f" [{backend}, {entries} list entries]"
+        bf, byf = bound(f_bytes, pairs * K1_OPS_PER_PAIR)
+        bb, byb = bound(b_bytes, pairs * K2_OPS_PER_PAIR)
+        log(f"training shape {kind}{note}: {pairs} contributing (pixel, "
+            f"splat) pairs; {kf} {f_ms:.4f} ms (plain fwd {plain_f_ms:.2f} "
+            f"ms, bound {bf:.5f} ms by {byf}); {kb} {b_ms:.4f} ms (plain "
+            f"bwd {plain_b_ms:.2f} ms, bound {bb:.5f} ms by {byb})")
+        cu, mod, fl, bl = sources[kind]
+        e_f, e_b = errs[kind]
+        for name, line, ms, pms, bms, by, err, what in (
+                (kf, fl, f_ms, plain_f_ms, bf, byf, e_f, "forward"),
+                (kb, bl, b_ms, plain_b_ms, bb, byb, e_b, "backward")):
+            rows.append(dict(
+                name=f"{name} {kind} {what}", route="cuda",
+                source=f"instantsplat_tpu_torch/csrc/{cu}",
+                replaces=f"instantsplat_tpu/ops/{mod}:{line}",
+                launches=path_launches[name], max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
     profile_iterations(params, cam, dev)
-    kernels = [
-        dict(name="K1 dense forward", route="cuda",
-             source="instantsplat_tpu_torch/csrc/rasterize.cu",
-             replaces="instantsplat_tpu/ops/rasterize_pallas.py:145",
-             launches=launches["K1"], max_abs_err=e_acc, ms=k1_ms,
-             plain_ms=plain_fwd_ms, bound_ms=b1, bound_by=by1,
-             library_ms=None),
-        dict(name="K2 dense backward", route="cuda",
-             source="instantsplat_tpu_torch/csrc/rasterize.cu",
-             replaces="instantsplat_tpu/ops/rasterize_pallas.py:265",
-             launches=launches["K2"], max_abs_err=e_grad, ms=k2_ms,
-             plain_ms=plain_bwd_ms, bound_ms=b2, bound_by=by2,
-             library_ms=None),
-    ]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

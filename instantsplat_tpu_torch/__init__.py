@@ -2,13 +2,16 @@
 
 The JAX package `instantsplat_tpu` stays the reference; this package mirrors
 its module names so each ported function can be found beside its
-counterpart. Plain tensor code is PyTorch; the dense compositor's Pallas
-kernels are hand-written CUDA for Hopper (`csrc/rasterize.cu`, bound with
-ctypes in `ops/rasterize_pallas.py`).
+counterpart. Plain tensor code is PyTorch; every Pallas kernel of the JAX
+package is hand-written CUDA for Hopper: the dense compositor
+(`csrc/rasterize.cu`, bound with ctypes in `ops/rasterize_pallas.py`) and
+the binned and tiled list compositors (`csrc/rasterize_lists.cu`,
+`ops/rasterize_lists.py`).
 
 Ported so far: stage 2, the joint Gaussian + camera-pose optimisation
 (`cli.train` -> `pipelines.train_pipeline.run_training` ->
-`pipelines.trainer.train_joint`).
+`pipelines.trainer.train_joint`), with every rasterizer backend and the
+`auto` probe.
 
 Entry points take an explicit `device` and default to "cuda". Asking for
 CUDA without a card raises; nothing falls back to the CPU.

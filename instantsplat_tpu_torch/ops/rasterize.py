@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 ALPHA_EPS = 1.0 / 255.0  # minimum contributing alpha
 ALPHA_MAX = 0.99  # alpha clamp
 LOG_TERM = float(np.log(np.float32(1e-4)))  # float32 log(1e-4), as in JAX
+LOG_ALPHA_EPS = float(np.log(np.float32(ALPHA_EPS)))
 
 
 class CompositeOut(NamedTuple):
@@ -57,10 +58,11 @@ def composite_out(acc: torch.Tensor, tfin: torch.Tensor,
     return CompositeOut(rgb=rgb, alpha=1.0 - tfin, depth=acc[3])
 
 
-def _chunk_step(rgbd, logT, done, lc, blk, px, py, base: int):
+def _chunk_step(rgbd, logT, done, lc, blk, px, py, gidx):
     """One chunk of the scan. blk [G, 10] packed splats (mx, my, ca, cb, cc,
-    log_op, r, g, b, depth); carries rgbd [P, 4], logT [P], done [P] bool,
-    lc [P] int (last contributing global index, -1 = none)."""
+    log_op, r, g, b, depth) with their global sorted indices gidx [G];
+    carries rgbd [P, 4], logT [P], done [P] bool, lc [P] int (last
+    contributing global index, -1 = none)."""
     dx = px[:, None] - blk[None, :, 0]
     dy = py[:, None] - blk[None, :, 1]
     power = (-0.5 * (blk[None, :, 2] * dx * dx + blk[None, :, 4] * dy * dy)
@@ -81,11 +83,34 @@ def _chunk_step(rgbd, logT, done, lc, blk, px, py, base: int):
     rgbd = rgbd + w @ blk[:, 6:10]
     logT = logT + torch.sum(torch.where(contribute, l, torch.zeros_like(l)),
                             dim=1)
-    gidx = base + torch.arange(blk.shape[0], device=blk.device)
     lc = torch.maximum(lc, torch.max(
         torch.where(contribute, gidx, torch.full_like(gidx, -1)), dim=1
     ).values)
     return rgbd, logT, done_seq[:, -1], lc
+
+
+def _scan_chunks(blk_rows, gidx, px, py, chunk: int):
+    """Front-to-back scan of blk_rows [M, 10] (sorted, global indices gidx
+    [M]) over the pixels (px, py) [P], in chunks of `chunk` splats. Each
+    chunk step is checkpointed when a gradient is being recorded.
+    -> (rgbd [P, 4], logT [P], lc [P] int64)."""
+    dev = blk_rows.device
+    n_pix = px.shape[0]
+    rgbd = torch.zeros((n_pix, 4), device=dev)
+    logT = torch.zeros((n_pix,), device=dev)
+    done = torch.zeros((n_pix,), dtype=torch.bool, device=dev)
+    lc = torch.full((n_pix,), -1, dtype=torch.int64, device=dev)
+    for base in range(0, blk_rows.shape[0], chunk):
+        blk = blk_rows[base:base + chunk]
+        gi = gidx[base:base + chunk]
+        if torch.is_grad_enabled() and blk.requires_grad:
+            rgbd, logT, done, lc = checkpoint(
+                _chunk_step, rgbd, logT, done, lc, blk, px, py, gi,
+                use_reentrant=False)
+        else:
+            rgbd, logT, done, lc = _chunk_step(rgbd, logT, done, lc, blk,
+                                               px, py, gi)
+    return rgbd, logT, lc
 
 
 def composite_plain(packed: torch.Tensor, height: int, width: int,
@@ -106,23 +131,32 @@ def composite_plain(packed: torch.Tensor, height: int, width: int,
         pad[:, 5] = -torch.inf
         packed = torch.cat([packed, pad], dim=0)
     px, py = pixel_coords(height, width, dev)
-    n_pix = height * width
-    rgbd = torch.zeros((n_pix, 4), device=dev)
-    logT = torch.zeros((n_pix,), device=dev)
-    done = torch.zeros((n_pix,), dtype=torch.bool, device=dev)
-    lc = torch.full((n_pix,), -1, dtype=torch.int64, device=dev)
-    for base in range(0, n_pad, chunk):
-        blk = packed[base:base + chunk]
-        if torch.is_grad_enabled() and blk.requires_grad:
-            rgbd, logT, done, lc = checkpoint(
-                _chunk_step, rgbd, logT, done, lc, blk, px, py, base,
-                use_reentrant=False)
-        else:
-            rgbd, logT, done, lc = _chunk_step(rgbd, logT, done, lc, blk,
-                                               px, py, base)
+    rgbd, logT, lc = _scan_chunks(packed, torch.arange(n_pad, device=dev),
+                                  px, py, chunk)
     acc = rgbd.T.reshape(4, height, width)
     return acc, torch.exp(logT).reshape(height, width), lc.reshape(
         height, width)
+
+
+def cutoff_radius(conic, log_opacity, valid):
+    """Alpha-cutoff screen radius per splat; r < 0 => contributes nowhere.
+
+    alpha >= 1/255 needs 0.5 d^T Conic d <= lo - log(1/255), so |d| <=
+    sqrt(2 m lam_max) with lam_max the 2-D covariance's major eigenvalue,
+    widened by x1.001 + 1 px (rasterize_pallas_tiled.py::_cutoff_radius).
+    Never the 3-sigma radius, which drops contributors."""
+    ca, cb, cc = conic[:, 0], conic[:, 1], conic[:, 2]
+    det = ca * cc - cb * cb
+    ok = valid & (det > 0.0) & (ca > 0.0)
+    det_c = torch.clamp(det, min=1e-30)
+    zero = torch.zeros_like(det)
+    tr_cov = torch.where(ok, (ca + cc) / det_c, zero)
+    det_cov = torch.where(ok, 1.0 / det_c, zero)
+    mid = 0.5 * tr_cov
+    lam_max = mid + torch.sqrt(torch.clamp(mid * mid - det_cov, min=0.0))
+    m = torch.clamp(log_opacity - LOG_ALPHA_EPS, min=0.0)
+    r = torch.sqrt(2.0 * m * lam_max) * 1.001 + 1.0
+    return torch.where(ok & (m > 0.0), r, torch.full_like(r, -1.0))
 
 
 def composite(mean2d, conic, log_opacity, colors, depth, valid,

@@ -17,7 +17,6 @@ raises. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -28,25 +27,27 @@ from instantsplat_tpu_torch.ops.rasterize import (  # noqa: F401 (re-export)
     CompositeOut,
     composite_out,
     composite_plain,
+    cutoff_radius,
 )
 
 TILE = 16  # pixels per tile side (csrc/rasterize.cu TILE)
 BATCH = 256  # splats per shared-memory batch (csrc/rasterize.cu BATCH)
 NCOL = 10
-_LOG_ALPHA_EPS = math.log(ALPHA_EPS)
 _DEAD = 1 << 30  # rectangle bound no tile index reaches
 
 
 class Kernel:
-    """One CUDA entry point: its ctypes signature and a launch count."""
+    """One CUDA entry point of csrc/<source>: its ctypes signature and a
+    launch count."""
 
-    def __init__(self, name: str, argtypes):
+    def __init__(self, name: str, argtypes, source: str = "rasterize.cu"):
         self.name = name
         self.argtypes = argtypes
+        self.source = source
         self.launches = 0  # incremented once per kernel launch
 
     def __call__(self, *args):
-        fn = getattr(cuda_build.load_library("rasterize.cu"), self.name)
+        fn = getattr(cuda_build.load_library(self.source), self.name)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         err = fn(*args)
@@ -65,24 +66,15 @@ def splat_rects(packed: torch.Tensor, height: int, width: int):
     """Per-splat and per-batch tile rectangles [.., 4] int32
     (x_lo, x_hi, y_lo, y_hi), inclusive, in 16-px tile units.
 
-    The extent is the alpha-cutoff radius along the 2-D covariance's major
-    axis: alpha >= 1/255 needs 0.5 d^T Conic d <= lo - log(1/255), so
-    |d| <= sqrt(2 m lam_max), widened by x1.001 + 1 px as the TPU kernel's
-    row bitmap does (rasterize_pallas.py::_row_block_bitmap). Splats that
-    can never contribute get an empty rectangle. Batch rectangles are the
+    The extent is the alpha-cutoff radius (ops/rasterize.py::cutoff_radius,
+    the TPU kernel's row bitmap radius, rasterize_pallas.py::
+    _row_block_bitmap). Splats that can never contribute (invalid rows
+    carry log-opacity -inf) get an empty rectangle. Batch rectangles are the
     union over each run of BATCH sorted splats.
     """
-    mx, my, ca, cb, cc, lo = packed[:, :6].unbind(1)
-    det = ca * cc - cb * cb
-    ok = (lo > -torch.inf) & (det > 0) & (ca > 0)
-    det_c = torch.clamp(det, min=1e-30)
-    tr_cov = torch.where(ok, (ca + cc) / det_c, torch.zeros_like(det))
-    det_cov = torch.where(ok, 1.0 / det_c, torch.zeros_like(det))
-    mid = 0.5 * tr_cov
-    lam_max = mid + torch.sqrt(torch.clamp(mid * mid - det_cov, min=0.0))
-    m = torch.clamp(lo - _LOG_ALPHA_EPS, min=0.0)
-    r = torch.sqrt(2.0 * m * lam_max) * 1.001 + 1.0
-    alive = ok & (m > 0)
+    mx, my = packed[:, 0], packed[:, 1]
+    r = cutoff_radius(packed[:, 2:5], packed[:, 5], packed[:, 5] > -torch.inf)
+    alive = r >= 0
     n_tx, n_ty = -(-width // TILE), -(-height // TILE)
 
     def span(c, n_t):

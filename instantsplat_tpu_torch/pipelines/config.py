@@ -31,8 +31,10 @@ class PipelineParams:
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
     debug: bool = False
-    # rasterizer backend: auto | pallas (both the dense CUDA kernels on the
-    # card) | oracle (plain PyTorch); pallas-binned/-tiled are not ported
+    # rasterizer backend: auto (training probes the dense kernels against
+    # a capacity backend sized for the scene and keeps the faster; both
+    # exact) | pallas (dense, K1/K2) | pallas-binned[:CF:DL] (K3/K4) |
+    # pallas-tiled[:CF:DY:DX] (K5/K6) | oracle (plain PyTorch)
     backend: str = "auto"
 
 

@@ -4,21 +4,38 @@ The pose is an ordinary tensor input: autograd carries its gradient
 through the front-end's world-to-camera transform. Backends:
 
 - "oracle": the plain PyTorch compositor (ops/rasterize.py);
-- "auto" and "pallas" (the name kept so the JAX CLI flags still parse):
+- "auto" and "pallas" (the names kept so the JAX CLI flags still parse):
   the dense kernels K1/K2 on a CUDA tensor, their plain version on a CPU
-  tensor (ops/rasterize_pallas.py);
-- "pallas-binned..." and "pallas-tiled...": not ported yet (ROADMAP
-  queue 2, kernels K3-K6); they raise NotImplementedError.
+  tensor (ops/rasterize_pallas.py). A single render resolves "auto" to the
+  dense kernels; the training loop's probe (pipelines/trainer.py) is where
+  auto picks between dense and a capacity backend;
+- "pallas-binned[:CF:DL]": the 1-D binned kernels K3/K4
+  (ops/rasterize_pallas_binned.py);
+- "pallas-tiled[:CF:DY:DX]": the 2-D tiled kernels K5/K6
+  (ops/rasterize_pallas_tiled.py).
+
+The capacity backends go through a rate-limited overflow guard: on the
+first call for an (N, H, W, capacities) signature and every
+_BINNED_CHECK_EVERY calls after, the lists' overflow flag is read; an
+overflowing signature is demoted to the dense kernels for good, with a
+warning, since the dense kernels never drop a splat.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional
 
 import torch
 
-from instantsplat_tpu_torch.ops import rasterize, rasterize_pallas
+from instantsplat_tpu_torch.ops import (
+    rasterize,
+    rasterize_pallas,
+    rasterize_pallas_binned,
+    rasterize_pallas_tiled,
+)
 from instantsplat_tpu_torch.ops.frontend import compute_columns
+from instantsplat_tpu_torch.ops.rasterize_lists import splat_valid
 
 # Finite "invalid" depth sentinel: sorts after every real depth, and a zero
 # compositing weight times it stays zero (inf would give 0 * inf = NaN).
@@ -52,18 +69,126 @@ def prepare_packed_splats(gaussians, pose, fx, fy, cx, cy, scale_modifier,
     return torch.cat([packed, key_sorted[:, None]], dim=1), cols
 
 
+def _parse_binned_caps(backend: str):
+    """"pallas-binned[:CF:DL]" -> (cap_factor | None, d_levels | None)."""
+    parts = backend.split(":")
+    if len(parts) == 3:
+        return int(parts[1]), int(parts[2])
+    return None, None
+
+
+def _parse_tiled_caps(backend: str):
+    """"pallas-tiled[:CF:DY:DX]" -> (cap_factor, dy, dx) or Nones."""
+    parts = backend.split(":")
+    if len(parts) == 4:
+        return int(parts[1]), int(parts[2]), int(parts[3])
+    return None, None, None
+
+
 def _check_backend(backend: str) -> str:
     if backend == "auto":
-        # a single render resolves to the dense kernels; the binned/tiled
-        # probe of the JAX trainer is not ported (ROADMAP queue 1)
         return "pallas"
-    if backend.startswith(("pallas-binned", "pallas-tiled")):
-        raise NotImplementedError(
-            f"backend {backend!r}: the binned and tiled kernels (K3-K6) are "
-            "not ported yet (ROADMAP.md queue 2); use 'auto' or 'pallas'")
-    if backend not in ("pallas", "oracle"):
+    if not (backend in ("pallas", "oracle")
+            or backend.startswith(("pallas-binned", "pallas-tiled"))):
         raise ValueError(f"unknown rasterizer backend: {backend}")
     return backend
+
+
+_log = logging.getLogger(__name__)
+_BINNED_CHECK_EVERY = 100
+
+
+class _OverflowGuard:
+    """Call counts and demoted signatures of the capacity backends."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.demoted: set = set()
+
+    def newly_demoted(self, key, overflow_fn) -> bool:
+        """Count a call of signature `key`; on its first call and every
+        _BINNED_CHECK_EVERY-th after, unless already demoted, read
+        overflow_fn() and demote `key` when it is True."""
+        n = self.calls.get(key, 0)
+        self.calls[key] = n + 1
+        if key in self.demoted or n % _BINNED_CHECK_EVERY != 0:
+            return False
+        if bool(overflow_fn()):
+            self.demoted.add(key)
+            return True
+        return False
+
+
+_guard = _OverflowGuard()
+
+
+def _columns(packed):
+    return packed[:, :2], packed[:, 2:5], packed[:, 5], splat_valid(packed)
+
+
+def _binned_backend_or_dense(packed, height: int, width: int,
+                             backend: str) -> str:
+    """The backend to use for this call: `backend`, or "pallas" once its
+    lists were found to overflow (port of the JAX driver's guard)."""
+    cf, dl = _parse_binned_caps(backend)
+    key = (int(packed.shape[0]), height, width, cf, dl)
+    if _guard.newly_demoted(key, lambda: rasterize_pallas_binned.bin_overflow(
+            *_columns(packed), height, width, cf, dl)):
+        remedy = (f"re-probe binned_view_requirements for fresh capacities "
+                  f"(current cap_factor={cf}, d_levels={dl})"
+                  if cf is not None else
+                  "raise rasterize_pallas_binned.CAP_FACTOR / D_LEVELS")
+        _log.warning(
+            "binned rasterizer bin capacity exhausted for N=%d %dx%d "
+            "(pairs would be dropped); auto-switching this signature to "
+            "the dense pallas backend. To keep binning, %s.",
+            *key[:3], remedy)
+    return "pallas" if key in _guard.demoted else backend
+
+
+def _tiled_backend_or_dense(packed, height: int, width: int,
+                            backend: str) -> str:
+    """As _binned_backend_or_dense, for the 2-D tiled backend."""
+    cf, dy, dx = _parse_tiled_caps(backend)
+    key = ("tiled", int(packed.shape[0]), height, width, cf, dy, dx)
+    if _guard.newly_demoted(key, lambda: rasterize_pallas_tiled.tile_overflow(
+            *_columns(packed), height, width, cf, dy, dx)):
+        _log.warning(
+            "tiled rasterizer capacity exhausted for N=%d %dx%d "
+            "(pairs would be dropped); auto-switching this signature "
+            "to the dense pallas backend. To keep tiling, re-probe "
+            "tiled_view_requirements (current cf=%s dy=%s dx=%s).",
+            key[1], key[2], key[3], cf, dy, dx)
+    return "pallas" if key in _guard.demoted else backend
+
+
+def _sizing_columns(gaussians, pose, camera, scale_modifier):
+    """Sorted splat columns of this view at SH degree 0, without a graph."""
+    with torch.no_grad():
+        packed, _ = prepare_packed_splats(
+            gaussians, pose, camera.fx, camera.fy, camera.cx, camera.cy,
+            scale_modifier, 0, camera.height, camera.width)
+    return _columns(packed)
+
+
+def binned_view_requirements(gaussians, pose, camera,
+                             scale_modifier: float = 1.0) -> tuple[int, int]:
+    """(cap_factor, d_levels) this view needs for drop-free binning, with
+    the drift margin (rasterize_pallas_binned.sizing_margin)."""
+    return rasterize_pallas_binned.bin_requirements(
+        *_sizing_columns(gaussians, pose, camera, scale_modifier),
+        camera.height, camera.width)
+
+
+def tiled_view_requirements(gaussians, pose, camera,
+                            scale_modifier: float = 1.0,
+                            ) -> tuple[int, int, int]:
+    """(cap_factor, dy_levels, dx_levels) this view needs for a drop-free
+    2-D tiled build, with the drift margin
+    (rasterize_pallas_tiled.sizing_margin_2d)."""
+    return rasterize_pallas_tiled.tile_requirements(
+        *_sizing_columns(gaussians, pose, camera, scale_modifier),
+        camera.height, camera.width)
 
 
 def render(gaussians, camera, pose: Optional[torch.Tensor] = None,
@@ -77,6 +202,7 @@ def render(gaussians, camera, pose: Optional[torch.Tensor] = None,
     bg: [3] background (default black); differentiable.
     active_sh_degree: SH bands to evaluate; defaults to the maximum.
     chunk: splats per scan step of the oracle backend.
+    backend: see the module docstring.
     """
     backend = _check_backend(backend)
     if pose is None:
@@ -85,15 +211,26 @@ def render(gaussians, camera, pose: Optional[torch.Tensor] = None,
         bg = torch.zeros(3, device=pose.device)
     if active_sh_degree is None:
         active_sh_degree = gaussians.max_sh_degree
+    h, w = camera.height, camera.width
     packed, cols = prepare_packed_splats(
         gaussians, pose, camera.fx, camera.fy, camera.cx, camera.cy,
-        scale_modifier, active_sh_degree, camera.height, camera.width)
+        scale_modifier, active_sh_degree, h, w)
+    if backend.startswith("pallas-binned"):
+        backend = _binned_backend_or_dense(packed.detach(), h, w, backend)
+    elif backend.startswith("pallas-tiled"):
+        backend = _tiled_backend_or_dense(packed.detach(), h, w, backend)
     if backend == "pallas":
-        acc, tfin = rasterize_pallas.composite_packed(
-            packed, camera.height, camera.width)
+        out = rasterize_pallas.composite_tiles_packed(packed, h, w, bg)
+    elif backend == "oracle":
+        acc, tfin, _ = rasterize.composite_plain(packed, h, w, chunk=chunk)
+        out = rasterize.composite_out(acc, tfin, bg)
+    elif backend.startswith("pallas-binned"):
+        cf, dl = _parse_binned_caps(backend)
+        out = rasterize_pallas_binned.composite_tiles_binned(
+            packed, h, w, bg, cap_factor=cf, d_levels=dl)
     else:
-        acc, tfin, _ = rasterize.composite_plain(
-            packed, camera.height, camera.width, chunk=chunk)
-    out = rasterize.composite_out(acc, tfin, bg)
+        cf, dy, dx = _parse_tiled_caps(backend)
+        out = rasterize_pallas_tiled.composite_tiles_2d(
+            packed, h, w, bg, cap_factor=cf, dy_levels=dy, dx_levels=dx)
     return RenderOut(render=out.rgb, alpha=out.alpha, depth=out.depth,
                      radii=cols.radius, visibility=cols.valid)
