@@ -8,21 +8,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. Card and software: nvidia-smi name and power limit, torch/CUDA versions.
    Exits non-zero when torch.cuda.is_available() is false.
 2. Build the CUDA kernels from instantsplat_tpu_torch/csrc with nvcc for
-   sm_90a, one nvcc per source, started together: rasterize.cu (K1 dense
-   forward, K2 dense backward) and rasterize_lists.cu (K3/K4 binned, K5/K6
-   tiled); print ptxas's report.
+   sm_90a, one nvcc per source, started together: rasterize.cu (KR, the
+   rectangle pass k1_rects; K1 dense forward; K2 dense backward) and
+   rasterize_lists.cu (K3/K4 binned, K5/K6 tiled); print ptxas's report.
 3. Kernel against plain version at the golden-case shape (64x48, 400
    splats) and a ragged mid size (250x187, 20k splats), for the dense
    kernels and for the binned and tiled ones at capacities sized for the
    splats, plus one deliberately overflowing capacity string each (kernel
    and plain version walk the same lists, so they drop the same pairs):
    acc and tfin within 5e-4, lc equal on >= 99.9% of pixels, d(packed)
-   within a relative L2 of 1e-3 (and elementwise at the golden case).
+   within a relative L2 of 1e-3 (and elementwise at the golden case). KR
+   against its plain version: rectangles equal (a differing
+   one is counted and printed, and may differ by one step of rounding
+   only; K1's parity then shows it still covers every contributor), the
+   coarse mask exactly the plain mask of the kernel's rectangles. Two more
+   scenes for the dense pair: 20k splats on twelve tiles, so that every
+   tile's queue overflows its capacity several times, and opaque splats in
+   front, so that whole tiles hit the stop.
 4. Train: a synthetic 3-view sparse_3 scene (COLMAP text, points3D.ply,
    PNG images; 100k points, 512x384) through
    instantsplat_tpu_torch.cli.train.main for 200 iterations with
    --pp_optimizer --optim_pose --sh_degree 3, four times:
-   --backend pallas (K1 and K2 launch once per iteration), --backend auto
+   --backend pallas (KR, K1 and K2 launch once per iteration), --backend auto
    (prints which backend won; forward launches over K1/K3/K5 sum to 200),
    pallas-tiled:CF:DY:DX and pallas-binned:CF:DL sized by the port's
    tiled_/binned_view_requirements with headroom for the run: the larger
@@ -35,9 +42,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. At the training shape, with the trained scene: each kernel against the
    plain version once more, the kernels' CUDA-event times, the plain
    version's times, and the least time the card could take (bytes over
-   3.35 TB/s, operations over 67 TFLOP/s fp32).
+   3.35 TB/s, operations over 67 TFLOP/s fp32). For the dense pair also:
+   rectangle tests per launch (tiles x N without the coarse mask, 32 per
+   marked (group, tile) with it), evaluated against contributing pairs
+   (every pixel of a covered tile, or only the 8x4 blocks a queued splat's
+   block mask marks), KR's time (CUDA events, which include the host's
+   launch cost, and a CUDA-graph replay, which does not) beside the plain
+   rectangles' on the card.
 
-The last lines are one JSON object {"kernels": [...]} with six entries,
+The last lines are one JSON object {"kernels": [...]} with seven entries,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
@@ -62,6 +75,8 @@ PEAK_F32_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # statements, so K3/K5 count as K1 and K4/K6 as K2
 K1_OPS_PER_PAIR = 29
 K2_OPS_PER_PAIR = 57
+# float operations per splat in k1_rects (radius, four floors)
+KR_OPS_PER_SPLAT = 35
 TRAIN_ITERS = 200
 N_POINTS = 100_000
 H, W = 384, 512
@@ -212,12 +227,12 @@ def backend_paths(backend: str, packed, height, width):
     from instantsplat_tpu_torch.render import driver
 
     if backend == "pallas":
-        rect, batch = RP.splat_rects(packed, height, width)
+        scan = RP.k1_rects(packed, height, width)
         return (("K1", "K2"),
                 lambda p: composite_plain(p, height, width),
-                lambda: RP.k1_forward(packed, rect, batch, height, width),
-                lambda ga, gtu, tf, lc: RP.k2_backward(packed, rect, batch,
-                                                       ga, gtu, tf, lc),
+                lambda: RP.k1_forward(packed, scan, height, width),
+                lambda ga, gtu, tf, lc: RP.k2_backward(packed, scan, ga, gtu,
+                                                       tf, lc),
                 None)
     if backend.startswith("pallas-binned"):
         lists, geom = RB.bin_lists(packed, height, width,
@@ -289,6 +304,62 @@ def compare(tag, packed, height, width, seed, elementwise,
     return e_acc, e_grad
 
 
+def compare_rects(tag, packed, height, width):
+    """Hold KR (k1_rects) against its plain version. -> (the kernel's
+    DenseScan, max abs difference of a rectangle entry, entries of the
+    longest tile queue)."""
+    import torch
+
+    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
+
+    scan = RP.k1_rects(packed, height, width)
+    torch.cuda.synchronize()
+    plain = RP.scan_plain(packed, height, width)
+    d_rect = (scan.rect.int() - plain.rect.int()).abs()
+    n_rect = int((d_rect > 0).any(1).sum())
+    err = int(d_rect.max()) if len(d_rect) else 0
+    mask_of_kernel_rects = RP.group_tile_mask(RP.unpack_rects(scan.rect),
+                                              height, width)
+    mask_eq = torch.equal(scan.mask, mask_of_kernel_rects)
+    _, cx, cy = RP.covered_tiles(RP.unpack_rects(scan.rect), height, width)
+    longest = int(torch.bincount(cy * -(-width // RP.TILE) + cx).max()) \
+        if len(cx) else 0
+    log(f"{tag}: KR N={packed.shape[0]} {width}x{height}: {n_rect} "
+        f"rectangles differ from the plain version (max step {err}); "
+        f"coarse mask equal to the plain mask of the "
+        f"kernel's rectangles: {mask_eq}, to the plain version's: "
+        f"{torch.equal(scan.mask, plain.mask)}; longest tile queue "
+        f"{longest} entries (K1/K2 hold {RP.QUEUE_CAP} at a time)")
+    if not mask_eq:
+        fail(f"{tag}: KR's coarse mask does not match its rectangles")
+    if err > 1 or n_rect > max(1, packed.shape[0] // 1000):
+        fail(f"{tag}: KR differs from the plain version beyond one "
+             f"rounding step on a few splats ({n_rect}, max step {err})")
+    return scan, float(err), longest
+
+
+def opaque_front(packed, height, width, seed):
+    """`packed` with 40 large, nearly opaque splats put in front of the
+    left half of the image: every pixel of the tiles there hits the
+    latched stop within a few splats, the right half composites as
+    before."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    k = 40
+    front = np.zeros((k, 10), np.float32)
+    front[:, 0] = rng.uniform(0, width / 2, k)
+    front[:, 1] = rng.uniform(0, height, k)
+    sigma = 0.2 * max(height, width)
+    front[:, 2] = front[:, 4] = 1.0 / sigma ** 2
+    front[:, 5] = np.log(0.999)
+    front[:, 6:9] = rng.uniform(size=(k, 3))
+    front[:, 9] = np.sort(rng.uniform(0.01, 0.02, k))
+    return torch.cat([torch.as_tensor(front, device=packed.device),
+                      packed]).contiguous()
+
+
 def sized_backends(packed, height, width, headroom=(0, 0, 0)):
     """{"binned": "pallas-binned:CF:DL", "tiled": "pallas-tiled:CF:DY:DX"}
     sized by the port's requirements for these splats, plus `headroom`
@@ -311,7 +382,8 @@ def compare_all(tag, packed, height, width, seed, elementwise,
     """The dense, binned and tiled kernels against the plain version; with
     `overflow`, also the deliberately overflowing strings. -> {kernel
     name: (forward err, backward err)} of the sized strings."""
-    errs = {"dense": compare(tag, packed, height, width, seed, elementwise)}
+    errs = {"rects": compare_rects(tag, packed, height, width)[1:],
+            "dense": compare(tag, packed, height, width, seed, elementwise)}
     for kind, backend in sized_backends(packed, height, width).items():
         errs[kind] = compare(tag, packed, height, width, seed, elementwise,
                              backend)
@@ -344,6 +416,24 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn`: `reps` calls captured in a CUDA
+    graph and replayed, so the host's launch cost stays out (for a kernel
+    shorter than its launch)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, 5) / reps
 
 
 def contributing_pairs(packed, height, width, chunk=256) -> int:
@@ -431,12 +521,12 @@ def profile_iterations(params, cam, dev, iters: int = 10):
 
 
 def kernel_table():
-    """{name: Kernel} of the six kernels, in order."""
+    """{name: Kernel} of the seven kernels, in order."""
     from instantsplat_tpu_torch.ops import rasterize_pallas as RP
     from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
     from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
 
-    return {"K1": RP.K1, "K2": RP.K2, "K3": RB.K3, "K4": RB.K4,
+    return {"KR": RP.KR, "K1": RP.K1, "K2": RP.K2, "K3": RB.K3, "K4": RB.K4,
             "K5": RT.K5, "K6": RT.K6}
 
 
@@ -465,7 +555,7 @@ class _Warnings(logging.Handler):
 
 def train_run(scene: Path, out: Path, backend: str, log_every: int):
     """One 200-iteration training run through the CLI. -> (params,
-    history, launches {K1..K6}, seconds, the trainer's "backend auto"
+    history, launches {KR, K1..K6}, seconds, the trainer's "backend auto"
     lines, the overflow guard's demotion warnings)."""
     import contextlib
 
@@ -602,8 +692,25 @@ def main():
     # ---- phase 3: kernels against plain version --------------------------
     compare_all("golden-case shape", blob_splats(400, 48, 64, 42, dev), 48,
                 64, seed=1, elementwise=True)
-    compare_all("ragged mid size", blob_splats(20_000, 187, 250, 7, dev),
-                187, 250, seed=2, elementwise=False, overflow=True)
+    mid = blob_splats(20_000, 187, 250, 7, dev)
+    compare_all("ragged mid size", mid, 187, 250, seed=2, elementwise=False,
+                overflow=True)
+    # 20k splats on twelve tiles: every tile's queue passes the kernels'
+    # capacity several times, so a scan pass hands over in windows
+    dense = blob_splats(20_000, 48, 64, 7, dev)
+    if compare_rects("dense tiles", dense, 48, 64)[2] <= 2 * 2048:
+        fail("dense tiles: the scene was meant to overflow the tile queue")
+    compare("dense tiles", dense, 48, 64, seed=2, elementwise=False)
+    front = opaque_front(mid, 187, 250, 8)
+    compare_rects("opaque front", front, 187, 250)
+    compare("opaque front", front, 187, 250, seed=2, elementwise=False)
+    with torch.no_grad():
+        _, tfin_front, _ = backend_paths("pallas", front, 187, 250)[2]()
+    stopped = float((tfin_front[:, :100] < 2e-4).float().mean())
+    log(f"opaque front: {stopped * 100:.1f}% of the left 100 columns ended "
+        "at the latched stop")
+    if stopped < 0.5:
+        fail("opaque front: the scene was meant to saturate the left tiles")
 
     # ---- phase 4: train --------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -623,12 +730,13 @@ def main():
                     "cfg_args", "train_time.txt", "scalars.jsonl"):
             if not (out / rel).is_file():
                 fail(f"training artifact missing: {rel}")
-        if launches != {"K1": TRAIN_ITERS, "K2": TRAIN_ITERS, "K3": 0,
-                        "K4": 0, "K5": 0, "K6": 0}:
+        if launches != {"KR": TRAIN_ITERS, "K1": TRAIN_ITERS,
+                        "K2": TRAIN_ITERS, "K3": 0, "K4": 0, "K5": 0,
+                        "K6": 0}:
             fail(f"dense run: kernel launches {launches} != {TRAIN_ITERS} "
-                 "each of K1 and K2")
+                 "each of KR, K1 and K2")
         # launches of each kernel on its own path's run
-        path_launches = {"K1": launches["K1"], "K2": launches["K2"]}
+        path_launches = {k: launches[k] for k in ("KR", "K1", "K2")}
         dense_losses = {it: m["loss"] for it, m in history}
 
         p0, cams = initial_params(scene, dev)
@@ -706,7 +814,37 @@ def main():
         t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
         return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
-    rows = []
+    # the dense pair's scan: what the coarse mask and the row spans save
+    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
+
+    scan = RP.k1_rects(packed, H, W)
+    n_tiles = -(-W // RP.TILE) * -(-H // RP.TILE)
+    tests, covered, evaluated = RP.scan_counts(packed, scan, H, W)
+    log(f"training shape dense scan: rectangle tests per launch "
+        f"{n_tiles * n} (tiles x N) -> {tests} (32 per marked (group, "
+        f"tile)); {covered} queue entries (covered (splat, tile) pairs) = "
+        f"{covered / n_tiles:.1f} splats a tile; evaluated (pixel, splat) "
+        f"pairs {covered * RP.TILE ** 2} (every pixel of a covered tile) "
+        f"-> {evaluated} (the 8x4 blocks the block masks mark) for {pairs} "
+        f"contributing = {evaluated / pairs:.2f}x")
+    kr_ms = graph_ms(lambda: RP.k1_rects(packed, H, W), 20)
+    kr_events_ms = cuda_ms(lambda: RP.k1_rects(packed, H, W), 20)
+    rects_plain_ms = cuda_ms(lambda: RP.splat_rects(packed, H, W), 20)
+    scan_plain_ms = cuda_ms(lambda: RP.scan_plain(packed, H, W), 3, 1)
+    kr_bytes = 24 * n + 8 * n + 4 * scan.mask.numel()
+    kr_bound, kr_by = bound(kr_bytes, n * KR_OPS_PER_SPLAT)
+    log(f"training shape KR: {kr_ms:.4f} ms in a CUDA-graph replay, "
+        f"{kr_events_ms:.4f} ms by CUDA events around eager launches (host "
+        f"launch cost included); plain splat_rects on the card "
+        f"{rects_plain_ms:.4f} ms, plain rectangles + coarse mask "
+        f"{scan_plain_ms:.2f} ms; bound {kr_bound:.5f} ms by {kr_by}")
+    rows = [dict(
+        name="KR dense rectangles", route="cuda",
+        source="instantsplat_tpu_torch/csrc/rasterize.cu",
+        replaces="instantsplat_tpu/ops/rasterize_pallas.py:408",
+        launches=path_launches["KR"], max_abs_err=errs["rects"][0],
+        ms=kr_ms, plain_ms=scan_plain_ms, bound_ms=kr_bound, bound_by=kr_by,
+        library_ms=None)]
     sources = {"dense": ("rasterize.cu", "rasterize_pallas.py", 145, 265),
                "binned": ("rasterize_lists.cu", "rasterize_pallas_binned.py",
                           202, 270),
@@ -729,7 +867,9 @@ def main():
             lambda: torch.autograd.grad(obj, [pg], retain_graph=True), 1, 0)
         del pg, acc_p, tfin_p, obj
         if lists is None:
-            f_bytes, b_bytes = 40 * n + 24 * H * W, 80 * n + 28 * H * W
+            scan_bytes = 8 * n + 4 * scan.mask.numel()
+            f_bytes = 40 * n + scan_bytes + 24 * H * W
+            b_bytes = 80 * n + scan_bytes + 28 * H * W
             note = ""
         else:
             entries = int(lists.seg_count.sum())

@@ -1,6 +1,6 @@
-"""Tests that need the CUDA card: the kernels K1/K2 (dense), K3/K4 (binned)
-and K5/K6 (tiled) against their plain versions, and the render paths on
-the card. Run them on a machine with a card:
+"""Tests that need the CUDA card: the kernels KR/K1/K2 (dense), K3/K4
+(binned) and K5/K6 (tiled) against their plain versions, and the render
+paths on the card. Run them on a machine with a card:
 
     python -m pytest tests/ -m gpu -q
 
@@ -51,14 +51,83 @@ def _scene(n, height, width, seed, device):
     return g, cam
 
 
-@pytest.mark.parametrize("n,hw", [(400, (48, 64)), (20_000, (187, 250))])
-def test_kernels_match_plain(cuda, n, hw):
-    h, w = hw
-    g, cam = _scene(n, h, w, 0, cuda)
+def _packed(n, h, w, device):
+    g, cam = _scene(n, h, w, 0, device)
     with torch.no_grad():
         packed, _ = prepare_packed_splats(g, cam.pose, cam.fx, cam.fy, cam.cx,
                                           cam.cy, 1.0, 2, h, w)
-    packed = packed.contiguous()
+    return packed.contiguous()
+
+
+def _opaque_front(packed, h, w):
+    """40 large, nearly opaque splats in front of the left half: every
+    pixel of the tiles there hits the latched stop within a few splats."""
+    rng = np.random.default_rng(8)
+    front = np.zeros((40, 10), np.float32)
+    front[:, 0] = rng.uniform(0, w / 2, 40)
+    front[:, 1] = rng.uniform(0, h, 40)
+    front[:, 2] = front[:, 4] = 1.0 / (0.2 * max(h, w)) ** 2
+    front[:, 5] = np.log(0.999)
+    front[:, 6:9] = rng.uniform(size=(40, 3))
+    front[:, 9] = np.sort(rng.uniform(0.01, 0.02, 40))
+    return torch.cat([torch.as_tensor(front, device=packed.device),
+                      packed]).contiguous()
+
+
+@pytest.mark.parametrize("n,hw,front", [(400, (48, 64), False),
+                                        (20_000, (187, 250), False),
+                                        (20_000, (187, 250), True)])
+def test_rect_kernel_matches_plain(cuda, n, hw, front):
+    """k1_rects against scan_plain: rectangles equal (or one rounding step
+    apart on at most 0.1% of the splats), and the coarse mask exactly the
+    plain mask of the kernel's own rectangles."""
+    h, w = hw
+    packed = _packed(n, h, w, cuda)
+    if front:
+        packed = _opaque_front(packed, h, w)
+    n0 = RP.KR.launches
+    scan = RP.k1_rects(packed, h, w)
+    torch.cuda.synchronize()
+    assert RP.KR.launches == n0 + 1
+    plain = RP.scan_plain(packed, h, w)
+    d = (scan.rect.int() - plain.rect.int()).abs()
+    assert int(d.max()) <= 1
+    assert int((d > 0).any(1).sum()) <= max(1, packed.shape[0] // 1000)
+    assert torch.equal(scan.mask, RP.group_tile_mask(
+        RP.unpack_rects(scan.rect), h, w))
+
+
+def test_dense_kernels_on_a_large_image(cuda):
+    """2048x1616 is 12,928 tiles: k1_rects' shared memory (4 B a tile)
+    passes 48 KB and the entry point raises the kernel's limit first."""
+    h, w = 1616, 2048
+    packed = _packed(300, h, w, cuda)
+    scan = RP.k1_rects(packed, h, w)
+    torch.cuda.synchronize()
+    plain = RP.scan_plain(packed, h, w)
+    assert torch.equal(scan.rect, plain.rect)
+    assert torch.equal(scan.mask, plain.mask)
+    acc, tfin, lc = RP.k1_forward(packed, scan, h, w)
+    with torch.no_grad():
+        acc_p, tfin_p, lc_p = composite_plain(packed, h, w)
+    assert float((acc - acc_p).abs().max()) <= 5e-4
+    assert float((tfin - tfin_p).abs().max()) <= 5e-4
+    assert float((lc.long() == lc_p).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("n,hw,front", [(400, (48, 64), False),
+                                        (20_000, (187, 250), False),
+                                        (20_000, (48, 64), False),
+                                        (20_000, (187, 250), True)])
+def test_kernels_match_plain(cuda, n, hw, front):
+    """K1/K2 against the plain version; 20k splats at 64x48 overflow every
+    tile's queue several times; with `front`, opaque splats make every
+    pixel of the left tiles stop early (K1's block exit, K2's start from
+    the tile's largest last contributor)."""
+    h, w = hw
+    packed = _packed(n, h, w, cuda)
+    if front:
+        packed = _opaque_front(packed, h, w)
     rng = np.random.default_rng(1)
     g_acc = torch.as_tensor(rng.normal(size=(4, h, w)), dtype=torch.float32,
                             device=cuda)
@@ -68,13 +137,16 @@ def test_kernels_match_plain(cuda, n, hw):
     acc_p, tfin_p, lc_p = composite_plain(p, h, w)
     (grad_p,) = torch.autograd.grad((acc_p * g_acc).sum()
                                     + (tfin_p * g_t).sum(), [p])
-    rect, batch = RP.splat_rects(packed, h, w)
+    scan = RP.k1_rects(packed, h, w)
     n1, n2 = RP.K1.launches, RP.K2.launches
-    acc, tfin, lc = RP.k1_forward(packed, rect, batch, h, w)
-    grad = RP.k2_backward(packed, rect, batch, g_acc,
-                          (g_t * tfin).contiguous(), tfin, lc)
+    acc, tfin, lc = RP.k1_forward(packed, scan, h, w)
+    grad = RP.k2_backward(packed, scan, g_acc, (g_t * tfin).contiguous(),
+                          tfin, lc)
     torch.cuda.synchronize()
     assert (RP.K1.launches, RP.K2.launches) == (n1 + 1, n2 + 1)
+    assert grad.shape == (packed.shape[0], RP.NCOL)
+    if front:  # most of the left 40% of the image ended at the stop
+        assert float((tfin[:, :w * 2 // 5] < 2e-4).float().mean()) > 0.5
     assert float((acc - acc_p.detach()).abs().max()) <= 5e-4
     assert float((tfin - tfin_p.detach()).abs().max()) <= 5e-4
     assert float((lc.long() == lc_p).float().mean()) >= 0.999
@@ -107,10 +179,11 @@ def test_train_step_launches_both_kernels(cuda):
                                                optim_pose=True))
     state = opt.init(g)
     before = {f: getattr(g, f).clone() for f in PARAM_FIELDS}
-    n1, n2 = RP.K1.launches, RP.K2.launches
+    before_n = (RP.KR.launches, RP.K1.launches, RP.K2.launches)
     m = train_step(g, cam, opt, state, 1, 0, torch.zeros(3, device=cuda),
                    0.2, "auto", 256)
-    assert (RP.K1.launches, RP.K2.launches) == (n1 + 1, n2 + 1)
+    assert (RP.KR.launches, RP.K1.launches, RP.K2.launches) == tuple(
+        c + 1 for c in before_n)
     assert np.isfinite(float(m["loss"]))
     assert not torch.equal(before["xyz"], g.xyz)
 

@@ -224,17 +224,16 @@ def test_packed_render_matches_jax_pallas_interpret(golden_case):
 # ---- CUDA wrapper pieces that run without a card -----------------------
 
 
-def test_splat_rects_cover_every_contributor():
-    """Every (pixel, splat) pair with alpha >= 1/255 lies inside the
-    splat's tile rectangle and its batch's rectangle."""
-    h, w = 45, 70
-    arrs = _random_splats(11, 600, h, w)
+def _packed_random(seed, n, h, w):
+    arrs = _random_splats(seed, n, h, w)
     lo = np.where(arrs[5], arrs[2], -np.inf).astype(np.float32)
-    packed = torch.tensor(np.concatenate(
-        [arrs[0], arrs[1], lo[:, None], arrs[3], arrs[4][:, None]], 1))
-    rect, batch = RP.splat_rects(packed, h, w)
-    assert rect.dtype == batch.dtype == torch.int32
-    assert rect.shape == (600, 4) and batch.shape == (-(-600 // RP.BATCH), 4)
+    return torch.tensor(np.concatenate(
+        [arrs[0], arrs[1], lo[:, None], arrs[3], arrs[4][:, None]], 1)), \
+        torch.tensor(arrs[5])
+
+
+def _contributing_pairs(packed, h, w):
+    """(pixel x, pixel y, splat) of every pair with alpha >= 1/255."""
     px, py = rasterize.pixel_coords(h, w, "cpu")
     dx = px[:, None] - packed[None, :, 0]
     dy = py[:, None] - packed[None, :, 1]
@@ -243,28 +242,182 @@ def test_splat_rects_cover_every_contributor():
     alpha = torch.clamp(torch.exp(power + packed[None, :, 5]), max=0.99)
     hit = (power <= 0) & (alpha >= rasterize.ALPHA_EPS)
     pix, spl = torch.nonzero(hit, as_tuple=True)
-    assert len(pix) > 1000
-    tx = (px[pix] // RP.TILE).int()
-    ty = (py[pix] // RP.TILE).int()
-    for r in (rect[spl], batch[spl // RP.BATCH]):
-        assert bool(((tx >= r[:, 0]) & (tx <= r[:, 1]) & (ty >= r[:, 2])
-                     & (ty <= r[:, 3])).all())
+    return px[pix].int(), py[pix].int(), spl
+
+
+def test_splat_rects_cover_every_contributor():
+    """Every (pixel, splat) pair with alpha >= 1/255 lies inside the
+    splat's tile rectangle, and in a block of the tile that the splat's
+    block mask marks."""
+    h, w = 45, 70
+    packed, valid = _packed_random(11, 600, h, w)
+    rect = RP.splat_rects(packed, h, w)
+    assert rect.dtype == torch.int32 and rect.shape == (600, 4)
+    x, y, spl = _contributing_pairs(packed, h, w)
+    assert len(spl) > 1000
+    tx, ty = x // RP.TILE, y // RP.TILE
+    r = rect[spl]
+    assert bool(((tx >= r[:, 0]) & (tx <= r[:, 1]) & (ty >= r[:, 2])
+                 & (ty <= r[:, 3])).all())
+    blocks = RP.block_masks(packed[spl], tx, ty)
+    bit = (y % RP.TILE) // RP.BLOCK_H * 2 + (x % RP.TILE) // RP.BLOCK_W
+    assert bool(((blocks >> bit) & 1).bool().all())
+    # the block mask is a real cull: under 3/4 of the covered tiles' blocks
+    j, ctx, cty = RP.covered_tiles(rect, h, w)
+    marked = RP.block_masks(packed[j], ctx, cty)
+    n_marked = sum(int(((marked >> b) & 1).sum()) for b in range(8))
+    assert 0 < n_marked < 6 * len(j)
     # invalid rows get an empty rectangle
-    dead = rect[~torch.tensor(arrs[5])]
+    dead = rect[~valid]
     assert bool((dead[:, 1] < dead[:, 0]).all())
+
+
+def _scan_cases(golden_case):
+    """(packed, h, w) at the golden-case shape and at a ragged one with
+    invalid rows and N no multiple of the group size."""
+    arrays, _, cam = golden_case
+    g = GaussianModel(**{f: torch.tensor(v) for f, v in arrays.items()},
+                      max_sh_degree=2)
+    with torch.no_grad():
+        packed, _ = prepare_packed_splats(g, cam.pose, cam.fx, cam.fy,
+                                          cam.cx, cam.cy, 1.0, 2, 48, 64)
+    ragged, valid = _packed_random(13, 1100, 45, 70)
+    assert 1100 % RP.GROUP and not bool(valid.all())
+    return {"golden": (packed, 48, 64), "ragged": (ragged, 45, 70)}
+
+
+@pytest.mark.parametrize("case", ["golden", "ragged"])
+def test_packed_rects_round_trip(golden_case, case):
+    """The kernels' int16 rectangles (8 bytes a splat) hold what
+    splat_rects computes, empty rectangles included."""
+    packed, h, w = _scan_cases(golden_case)[case]
+    scan = RP.scan_plain(packed, h, w)
+    rect = RP.splat_rects(packed, h, w)
+    assert scan.rect.dtype == torch.int16
+    assert scan.rect.is_contiguous() and scan.rect.element_size() * 4 == 8
+    n = packed.shape[0]
+    assert scan.rect.shape == (-(-n // RP.WORD_SPLATS) * RP.WORD_SPLATS, 4)
+    assert torch.equal(RP.unpack_rects(scan.rect[:n]), rect)
+    assert torch.equal(RP.pack_rects(rect), scan.rect[:n])
+    dead = torch.cat([rect[:, 1] < rect[:, 0],
+                      torch.ones(len(scan.rect) - n, dtype=torch.bool)])
+    if case == "ragged":
+        assert bool(dead[:n].any())
+    assert bool((scan.rect[dead] == torch.tensor(
+        [32767, -1, 32767, -1], dtype=torch.int16)).all())
+
+
+@pytest.mark.parametrize("case", ["golden", "ragged"])
+def test_group_tile_mask_marks_every_covering_group(golden_case, case):
+    """The scan's coarse mask marks exactly the (group, tile) pairs in
+    which some splat's rectangle covers the tile, so a tile that reads
+    marked groups only drops nothing."""
+    packed, h, w = _scan_cases(golden_case)[case]
+    n = packed.shape[0]
+    scan = RP.scan_plain(packed, h, w)
+    n_tx, n_ty = -(-w // RP.TILE), -(-h // RP.TILE)
+    n_words = -(-n // RP.WORD_SPLATS)
+    assert scan.mask.dtype == torch.int32
+    assert scan.mask.shape == (n_words, n_tx * n_ty)
+    want = np.zeros((n_words * 32, n_tx * n_ty), bool)
+    for j, (x0, x1, y0, y1) in enumerate(
+            RP.splat_rects(packed, h, w).tolist()):
+        for ty in range(y0, y1 + 1):  # empty for (_DEAD, -1)
+            want[j // RP.GROUP, ty * n_tx + x0:ty * n_tx + x1 + 1] = True
+    got = RP.mask_bits(scan.mask).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and not want[-(-n // RP.GROUP):].any()
+    # and with it every contributing pair's (group, tile)
+    x, y, spl = _contributing_pairs(packed, h, w)
+    assert got[spl // RP.GROUP, (y // RP.TILE) * n_tx + x // RP.TILE].all()
+    tests, entries, pairs = RP.scan_counts(packed, scan, h, w)
+    assert tests == int(want.sum()) * RP.GROUP <= n_tx * n_ty * n_words * 1024
+    assert entries * RP.TILE ** 2 >= pairs >= len(spl)
+
+
+def _composite_through_scan(packed, scan, h, w):
+    """The walk K1 makes, in plain torch: per tile the marked groups, of
+    those the splats whose rectangle covers the tile, in order; per 8x4
+    block those whose block mask marks it; composited by the plain
+    version's scan."""
+    n_tx = -(-w // RP.TILE)
+    rect = RP.unpack_rects(scan.rect)
+    groups = RP.mask_bits(scan.mask)
+    acc = torch.zeros((4, h, w))
+    tfin = torch.ones((h, w))
+    lc = torch.full((h, w), -1, dtype=torch.int64)
+    for ty in range(-(-h // RP.TILE)):
+        for tx in range(n_tx):
+            marked = torch.nonzero(groups[:, ty * n_tx + tx])[:, 0]
+            j = (marked[:, None] * RP.GROUP + torch.arange(RP.GROUP)).reshape(-1)
+            j = j[j < packed.shape[0]]
+            r = rect[j]
+            queue = j[(tx >= r[:, 0]) & (tx <= r[:, 1]) & (ty >= r[:, 2])
+                      & (ty <= r[:, 3])]
+            blocks = RP.block_masks(packed[queue],
+                                    torch.full_like(queue, tx),
+                                    torch.full_like(queue, ty))
+            for b in range(8):
+                y0 = ty * RP.TILE + b // 2 * RP.BLOCK_H
+                x0 = tx * RP.TILE + b % 2 * RP.BLOCK_W
+                y1, x1 = min(y0 + RP.BLOCK_H, h), min(x0 + RP.BLOCK_W, w)
+                if y0 >= h or x0 >= w:
+                    continue
+                mine = queue[((blocks >> b) & 1).bool()]
+                py, px = torch.meshgrid(
+                    torch.arange(y0, y1, dtype=torch.float32),
+                    torch.arange(x0, x1, dtype=torch.float32), indexing="ij")
+                rgbd, logT, last = rasterize._scan_chunks(
+                    packed[mine], mine, px.reshape(-1), py.reshape(-1), 64)
+                shape = (y1 - y0, x1 - x0)
+                acc[:, y0:y1, x0:x1] = rgbd.T.reshape(4, *shape)
+                tfin[y0:y1, x0:x1] = torch.exp(logT).reshape(shape)
+                lc[y0:y1, x0:x1] = last.reshape(shape)
+    return acc, tfin, lc
+
+
+@pytest.mark.parametrize("case", ["golden", "ragged"])
+def test_scan_walk_composites_like_plain(golden_case, case):
+    """Culling by coarse mask, rectangle and block mask leaves the image and
+    the last-contributor index as the plain version computes them."""
+    packed, h, w = _scan_cases(golden_case)[case]
+    acc, tfin, lc = _composite_through_scan(
+        packed, RP.scan_plain(packed, h, w), h, w)
+    acc_p, tfin_p, lc_p = rasterize.composite_plain(packed, h, w)
+    np.testing.assert_array_equal(lc.numpy(), lc_p.numpy())
+    np.testing.assert_allclose(acc.numpy(), acc_p.numpy(), atol=2e-6)
+    np.testing.assert_allclose(tfin.numpy(), tfin_p.numpy(), atol=2e-6)
+
+
+def test_grad_scratch_returns_packed_columns():
+    """K2 adds into a 16-byte-aligned [N, 12] scratch; what the wrapper
+    hands to autograd is its first ten columns, usable as d(packed)."""
+    rng = np.random.default_rng(3)
+    grad = torch.tensor(rng.normal(size=(37, RP.NCOL)).astype(np.float32))
+    scratch = torch.zeros((37, RP.GRAD_W))
+    assert RP.GRAD_W * scratch.element_size() % 16 == 0
+    scratch[:, :RP.NCOL] = grad
+    out = RP.grad_columns(scratch)
+    assert out.shape == (37, RP.NCOL) and torch.equal(out, grad)
+    # a strided view is a valid cotangent for the [N, 10] packed array
+    p = torch.zeros((37, RP.NCOL), requires_grad=True)
+    (p * 2.0).backward(out)
+    np.testing.assert_array_equal(p.grad.numpy(), 2.0 * grad.numpy())
 
 
 def test_kernel_wrappers_reject_cpu_tensors():
     packed = torch.zeros((8, 10))
-    rect, batch = RP.splat_rects(packed, 16, 16)
-    launches = (RP.K1.launches, RP.K2.launches)
+    scan = RP.scan_plain(packed, 16, 16)
+    launches = (RP.KR.launches, RP.K1.launches, RP.K2.launches)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        RP.k1_forward(packed, rect, batch, 16, 16)
+        RP.k1_rects(packed, 16, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        RP.k2_backward(packed, rect, batch, torch.zeros(4, 16, 16),
+        RP.k1_forward(packed, scan, 16, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        RP.k2_backward(packed, scan, torch.zeros(4, 16, 16),
                        torch.zeros(16, 16), torch.zeros(16, 16),
                        torch.zeros(16, 16, dtype=torch.int32))
-    assert (RP.K1.launches, RP.K2.launches) == launches
+    assert (RP.KR.launches, RP.K1.launches, RP.K2.launches) == launches
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
