@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. Build the CUDA kernels from instantsplat_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, started together: rasterize.cu (KR, the
    rectangle pass k1_rects; K1 dense forward; K2 dense backward) and
-   rasterize_lists.cu (K3/K4 binned, K5/K6 tiled); print ptxas's report.
+   rasterize_lists.cu (K3/K4 binned, K5/K6 tiled), which share
+   compositor.cuh; print ptxas's report.
 3. Kernel against plain version at the golden-case shape (64x48, 400
    splats) and a ragged mid size (250x187, 20k splats), for the dense
    kernels and for the binned and tiled ones at capacities sized for the
@@ -22,9 +23,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one is counted and printed, and may differ by one step of rounding
    only; K1's parity then shows it still covers every contributor), the
    coarse mask exactly the plain mask of the kernel's rectangles. Two more
-   scenes for the dense pair: 20k splats on twelve tiles, so that every
-   tile's queue overflows its capacity several times, and opaque splats in
-   front, so that whole tiles hit the stop.
+   scenes for all six compositors: 20k splats on twelve tiles, so that
+   every tile's queue overflows its capacity several times and every
+   segment's list is several scan passes long, and opaque splats in front,
+   so that whole tiles and spans hit the stop.
 4. Train: a synthetic 3-view sparse_3 scene (COLMAP text, points3D.ply,
    PNG images; 100k points, 512x384) through
    instantsplat_tpu_torch.cli.train.main for 200 iterations with
@@ -35,20 +37,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tiled_/binned_view_requirements with headroom for the run: the larger
    of the requirement on the initial scene and on the dense run's final
    one (this scene's splats grow ~5x in 200 iterations), plus a margin.
-   K5 and K6, or K3 and K4, launch 200 times each; a demotion by the
-   overflow guard fails the run. A second dense run measures the
+   K5 and K6, or K3 and K4, launch 200 times each, and so does KR, which
+   runs in front of them too; a demotion by the overflow guard fails the
+   run. A second dense run measures the
    run-to-run spread. Every loss must fall and each curve must stay within
    LOSS_RTOL of the dense run's.
 5. At the training shape, with the trained scene: each kernel against the
-   plain version once more, the kernels' CUDA-event times, the plain
-   version's times, and the least time the card could take (bytes over
+   plain version once more, the kernels' times (20 launches replayed from
+   a CUDA graph, which is the device's time, and CUDA events around eager
+   launches, which read the host's pace when the host is the slower), the
+   plain version's times, and the least time the card could take (bytes over
    3.35 TB/s, operations over 67 TFLOP/s fp32). For the dense pair also:
    rectangle tests per launch (tiles x N without the coarse mask, 32 per
    marked (group, tile) with it), evaluated against contributing pairs
    (every pixel of a covered tile, or only the 8x4 blocks a queued splat's
    block mask marks), KR's time (CUDA events, which include the host's
    launch cost, and a CUDA-graph replay, which does not) beside the plain
-   rectangles' on the card.
+   rectangles' on the card. For the binned and the tiled pair: list
+   entries, rectangle tests and fetched rows per launch, evaluated against
+   contributing pairs before (every pixel of a segment walks its whole
+   list) and after (the 8x4 blocks a fetched entry's block mask marks), and
+   the first design's times beside the new ones. Then 10 iterations of the
+   dense, the binned and the tiled path under torch.profiler.
 
 The last lines are one JSON object {"kernels": [...]} with seven entries,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -69,10 +79,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_S = 67e12  # H100 SXM fp32 outside the tensor cores
-# float operations per contributing (pixel, splat) pair, counted from
-# csrc/rasterize.cu (each exp/log1p counted as one operation); the per-pair
-# bodies of csrc/rasterize_lists.cu's forward and backward are the same
-# statements, so K3/K5 count as K1 and K4/K6 as K2
+# float operations per contributing (pixel, splat) pair, counted from the
+# walks of csrc/compositor.cuh (each exp/log1p counted as one operation),
+# which the dense and the list kernels share: K3/K5 count as K1 and K4/K6
+# as K2
 K1_OPS_PER_PAIR = 29
 K2_OPS_PER_PAIR = 57
 # float operations per splat in k1_rects (radius, four floors)
@@ -90,6 +100,13 @@ SOURCES = ("rasterize.cu", "rasterize_lists.cu")
 LOSS_RTOL = 0.1
 # Deliberately overflowing capacity strings for the kernel checks
 OVERFLOW = {"binned": "pallas-binned:1:2", "tiled": "pallas-tiled:1:1:1"}
+# CUDA-event ms of the list kernels' first design (every pixel of a CTA
+# walked its segment's whole list; scalar atomics in the backward) at the
+# training shape on an NVIDIA H100 80GB HBM3 at 700 W, printed beside this
+# run's times
+FIRST_DESIGN_MS = {"K3": 1.4631, "K4": 1.6989, "K5": 0.6264, "K6": 0.9697}
+# list entries one scan pass of K3-K6 takes (csrc/rasterize_lists.cu PASS)
+LIST_PASS = 1024
 
 
 def fail(msg: str):
@@ -216,9 +233,11 @@ def write_scene(root: Path, seed: int = 0):
 
 def backend_paths(backend: str, packed, height, width):
     """(kernel names, plain(p) -> (acc, tfin, lc), kernel fwd(), kernel
-    bwd(g_acc, gtu, tfin, lc), lists) for the dense backend "pallas" or a
-    capacity backend string; the list backends build their lists once, so
-    the kernel and the plain version walk the same ones."""
+    bwd(g_acc, gtu, tfin, lc), (lists, geometry, pixels per CTA row) or
+    None) for the dense backend "pallas" or a capacity backend string; the
+    list backends build their lists once, so the kernel and the plain
+    version walk the same ones. KR's rectangles are made once, outside the
+    kernels' timed calls."""
     from instantsplat_tpu_torch.ops import rasterize_lists as RL
     from instantsplat_tpu_torch.ops import rasterize_pallas as RP
     from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
@@ -226,8 +245,8 @@ def backend_paths(backend: str, packed, height, width):
     from instantsplat_tpu_torch.ops.rasterize import composite_plain
     from instantsplat_tpu_torch.render import driver
 
+    scan = RP.k1_rects(packed, height, width)
     if backend == "pallas":
-        scan = RP.k1_rects(packed, height, width)
         return (("K1", "K2"),
                 lambda p: composite_plain(p, height, width),
                 lambda: RP.k1_forward(packed, scan, height, width),
@@ -237,17 +256,18 @@ def backend_paths(backend: str, packed, height, width):
     if backend.startswith("pallas-binned"):
         lists, geom = RB.bin_lists(packed, height, width,
                                    *driver._parse_binned_caps(backend))
-        names, fwd, bwd = ("K3", "K4"), RB.K3, RB.K4
+        names, fwd, bwd, cta_cols = ("K3", "K4"), RB.K3, RB.K4, RB.CTA_COLS
     else:
         lists, geom = RT.tile_lists(packed, height, width,
                                     *driver._parse_tiled_caps(backend))
-        names, fwd, bwd = ("K5", "K6"), RT.K5, RT.K6
+        names, fwd, bwd, cta_cols = ("K5", "K6"), RT.K5, RT.K6, RT.CTA_COLS
     return (names,
             lambda p: RL.composite_lists_plain(p, lists, geom, height, width),
-            lambda: RL.lists_forward(fwd, packed, lists, geom, height, width),
-            lambda ga, gtu, tf, lc: RL.lists_backward(bwd, packed, lists,
-                                                      geom, ga, gtu, tf, lc),
-            lists)
+            lambda: RL.lists_forward(fwd, packed, scan.rect, lists, geom,
+                                     height, width),
+            lambda ga, gtu, tf, lc: RL.lists_backward(
+                bwd, packed, scan.rect, lists, geom, ga, gtu, tf, lc),
+            (lists, geom, cta_cols))
 
 
 def compare(tag, packed, height, width, seed, elementwise,
@@ -265,7 +285,7 @@ def compare(tag, packed, height, width, seed, elementwise,
     g_acc[3] *= 1e-2  # depth cotangent at a scale like the colors'
     g_tfin = torch.as_tensor(rng.normal(size=(height, width)),
                              dtype=torch.float32, device=dev)
-    (kf, kb), plain, k_fwd, k_bwd, lists = backend_paths(
+    (kf, kb), plain, k_fwd, k_bwd, listed = backend_paths(
         backend, packed, height, width)
     p = packed.detach().clone().requires_grad_(True)
     acc_p, tfin_p, lc_p = plain(p)
@@ -280,9 +300,10 @@ def compare(tag, packed, height, width, seed, elementwise,
     rel_l2 = ((grad_k - grad_p).norm() / grad_p.norm().clamp(min=1e-30)
               ).item()
     e_grad = (grad_k - grad_p).abs().max().item()
-    lists_note = "" if lists is None else (
-        f" [{backend}: overflow={bool(lists.overflow)}, "
-        f"{int(lists.seg_count.sum())} list entries]")
+    lists_note = "" if listed is None else (
+        f" [{backend}: overflow={bool(listed[0].overflow)}, "
+        f"{int(listed[0].seg_count.sum())} list entries, longest list "
+        f"{int(listed[0].seg_count.max())}]")
     log(f"{tag}{lists_note}: N={packed.shape[0]} {width}x{height} {kf} acc "
         f"max|d|={e_acc:.3e} tfin max|d|={e_tfin:.3e} lc equal="
         f"{lc_eq * 100:.4f}% | {kb} d(packed) rel L2={rel_l2:.3e} "
@@ -389,8 +410,7 @@ def compare_all(tag, packed, height, width, seed, elementwise,
                              backend)
     if overflow:
         for kind, backend in OVERFLOW.items():
-            (_, _, _, _, lists) = backend_paths(backend, packed, height,
-                                                width)
+            lists = backend_paths(backend, packed, height, width)[4][0]
             if not bool(lists.overflow):
                 fail(f"{tag}: {backend} was meant to overflow and did not")
             compare(tag + " overflowing", packed, height, width, seed,
@@ -424,6 +444,9 @@ def graph_ms(fn, reps: int) -> float:
     shorter than its launch)."""
     import torch
 
+    # `fn` runs on a stream of its own: what made its inputs, on the
+    # current stream, must have finished
+    torch.cuda.synchronize()
     stream = torch.cuda.Stream()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(stream):
@@ -470,10 +493,12 @@ def contributing_pairs(packed, height, width, chunk=256) -> int:
     return total
 
 
-def profile_iterations(params, cam, dev, iters: int = 10):
+def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
+                       iters: int = 10):
     """Device time per training iteration by kernel name (torch.profiler
-    over `iters` steady steps of the training step on one view), and the
-    share of the window's wall time the card was busy."""
+    over `iters` steady steps of the training step on one view with
+    `backend`), and the share of the window's wall time the card was
+    busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -481,7 +506,9 @@ def profile_iterations(params, cam, dev, iters: int = 10):
     from instantsplat_tpu_torch.opt.gaussian_opt import (
         GaussianOptimizer, OptimizationConfig)
     from instantsplat_tpu_torch.pipelines.trainer import train_step
+    from instantsplat_tpu_torch.render import driver
 
+    driver._guard = driver._OverflowGuard()  # nothing checked or demoted
     opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
                                                optim_pose=True),
                             total_iterations=TRAIN_ITERS)
@@ -489,7 +516,7 @@ def profile_iterations(params, cam, dev, iters: int = 10):
     bg = torch.zeros(3, device=dev)
 
     def step(i):
-        float(train_step(params, cam, opt, state, i, 0, bg, 0.2, "auto",
+        float(train_step(params, cam, opt, state, i, 0, bg, 0.2, backend,
                          256)["loss"])  # per-iteration loss read, as trained
 
     for i in range(3):
@@ -509,15 +536,16 @@ def profile_iterations(params, cam, dev, iters: int = 10):
                 e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     if not by_name:
-        log("profile: torch.profiler recorded no device events")
+        log(f"profile {tag}: torch.profiler recorded no device events")
         return
-    log(f"profile: {iters} iterations, {wall_ms / iters:.2f} ms/iter wall "
+    log(f"profile {tag} ({backend}): {iters} iterations, "
+        f"{wall_ms / iters:.2f} ms/iter wall "
         f"(profiler on), device busy {busy_ms / iters:.2f} ms/iter = "
         f"{100 * busy_ms / wall_ms:.1f}% (idle {100 - 100 * busy_ms / wall_ms:.1f}%)"
         f", {len(by_name)} kernel names")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"profile: {ms / iters:8.3f} ms/iter {100 * ms / busy_ms:5.1f}% "
-            f"{name[:110]}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"profile {tag}: {ms / iters:8.3f} ms/iter "
+            f"{100 * ms / busy_ms:5.1f}% {name[:110]}")
 
 
 def kernel_table():
@@ -695,15 +723,22 @@ def main():
     mid = blob_splats(20_000, 187, 250, 7, dev)
     compare_all("ragged mid size", mid, 187, 250, seed=2, elementwise=False,
                 overflow=True)
-    # 20k splats on twelve tiles: every tile's queue passes the kernels'
-    # capacity several times, so a scan pass hands over in windows
+    # 20k splats on twelve tiles: every tile's queue passes the dense
+    # kernels' capacity several times, so a scan pass hands over in
+    # windows, and every segment's list takes several scan passes of the
+    # list kernels, which carry incomplete chunks from pass to pass
     dense = blob_splats(20_000, 48, 64, 7, dev)
-    if compare_rects("dense tiles", dense, 48, 64)[2] <= 2 * 2048:
+    errs = compare_all("dense tiles", dense, 48, 64, seed=2,
+                       elementwise=False)
+    if errs["rects"][1] <= 2 * 2048:
         fail("dense tiles: the scene was meant to overflow the tile queue")
-    compare("dense tiles", dense, 48, 64, seed=2, elementwise=False)
+    for backend in sized_backends(dense, 48, 64).values():
+        lists = backend_paths(backend, dense, 48, 64)[4][0]
+        if int(lists.seg_count.max()) <= 2 * LIST_PASS:
+            fail(f"dense tiles: the lists of {backend} were meant to be "
+                 "longer than two scan passes")
     front = opaque_front(mid, 187, 250, 8)
-    compare_rects("opaque front", front, 187, 250)
-    compare("opaque front", front, 187, 250, seed=2, elementwise=False)
+    compare_all("opaque front", front, 187, 250, seed=2, elementwise=False)
     with torch.no_grad():
         _, tfin_front, _ = backend_paths("pallas", front, 187, 250)[2]()
     stopped = float((tfin_front[:, :100] < 2e-4).float().mean())
@@ -762,9 +797,10 @@ def main():
                                    dense_losses)
         fwd = launches["K1"] + launches["K3"] + launches["K5"]
         bwd = launches["K2"] + launches["K4"] + launches["K6"]
-        if fwd != TRAIN_ITERS or bwd != TRAIN_ITERS:
-            fail(f"auto run: forward launches {fwd}, backward {bwd}, "
-                 f"expected {TRAIN_ITERS} each ({launches})")
+        if (fwd != TRAIN_ITERS or bwd != TRAIN_ITERS
+                or launches["KR"] != TRAIN_ITERS):
+            fail(f"auto run: forward launches {fwd}, backward {bwd}, KR "
+                 f"{launches['KR']}, expected {TRAIN_ITERS} each ({launches})")
         won = ("dense" if launches["K1"] > TRAIN_ITERS // 2 else
                "tiled" if launches["K5"] > TRAIN_ITERS // 2 else "binned")
         log(f"train auto: backend that ran most iterations: {won}")
@@ -784,9 +820,10 @@ def main():
                                      launches, secs, dem, 1, dense_losses)
             if dem:
                 fail(f"{kind} run: the overflow guard demoted {backend}")
-            if launches[kf] != TRAIN_ITERS or launches[kb] != TRAIN_ITERS:
-                fail(f"{kind} run: {kf}/{kb} launched {launches[kf]}/"
-                     f"{launches[kb]} times, expected {TRAIN_ITERS}")
+            if any(launches[k] != TRAIN_ITERS for k in ("KR", kf, kb)):
+                fail(f"{kind} run: KR/{kf}/{kb} launched {launches['KR']}/"
+                     f"{launches[kf]}/{launches[kb]} times, expected "
+                     f"{TRAIN_ITERS}")
             path_launches.update({kf: launches[kf], kb: launches[kb]})
         log("steady ms/iter by backend: " + ", ".join(
             f"{k} {v:.2f}" for k, v in steady.items()))
@@ -815,6 +852,7 @@ def main():
         return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
     # the dense pair's scan: what the coarse mask and the row spans save
+    from instantsplat_tpu_torch.ops import rasterize_lists as RL
     from instantsplat_tpu_torch.ops import rasterize_pallas as RP
 
     scan = RP.k1_rects(packed, H, W)
@@ -852,12 +890,17 @@ def main():
                          218, 291)}
     for kind in ("dense", "binned", "tiled"):
         backend = "pallas" if kind == "dense" else sized[kind]
-        (kf, kb), plain, k_fwd, k_bwd, lists = backend_paths(
+        (kf, kb), plain, k_fwd, k_bwd, listed = backend_paths(
             backend, packed, H, W)
         acc_k, tfin_k, lc_k = k_fwd()
         gtu = (g_tfin * tfin_k).contiguous()
-        f_ms = cuda_ms(k_fwd, 20)
-        b_ms = cuda_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
+        # device time: 20 launches replayed from a CUDA graph (events
+        # around eager launches read the host's pace when the host is
+        # slower than the kernel; they are logged beside)
+        f_ms = graph_ms(k_fwd, 20)
+        b_ms = graph_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
+        f_events_ms = cuda_ms(k_fwd, 20)
+        b_events_ms = cuda_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
         with torch.no_grad():
             plain_f_ms = cuda_ms(lambda: plain(packed), 1, 1)
         pg = packed.clone().requires_grad_(True)
@@ -866,23 +909,47 @@ def main():
         plain_b_ms = cuda_ms(
             lambda: torch.autograd.grad(obj, [pg], retain_graph=True), 1, 0)
         del pg, acc_p, tfin_p, obj
-        if lists is None:
+        if listed is None:
             scan_bytes = 8 * n + 4 * scan.mask.numel()
             f_bytes = 40 * n + scan_bytes + 24 * H * W
             b_bytes = 80 * n + scan_bytes + 28 * H * W
             note = ""
         else:
-            entries = int(lists.seg_count.sum())
+            lists, geom, cta_cols = listed
+            counts = RL.list_counts(packed, lists, geom, cta_cols, H, W)
             tables = 8 * lists.seg_count.shape[0]
-            f_bytes = 40 * n + 4 * entries + tables + 24 * H * W
-            b_bytes = 80 * n + 4 * entries + tables + 28 * H * W
-            note = f" [{backend}, {entries} list entries]"
+            # the rectangles (8 B a splat) are read too since the redesign
+            f_bytes = 48 * n + 4 * counts.entries + tables + 24 * H * W
+            b_bytes = 88 * n + 4 * counts.entries + tables + 28 * H * W
+            note = f" [{backend}, {counts.entries} list entries]"
+            log(f"training shape {kind} lists: {counts.entries} list "
+                f"entries = {counts.entries / n:.2f} a splat, "
+                f"{counts.entries / geom.n_seg:.0f} a segment (longest "
+                f"{int(lists.seg_count.max())}); rectangle tests per launch "
+                f"{counts.tests} (one per entry and {geom.seg_rows}x"
+                f"{cta_cols} CTA of its segment), rows fetched "
+                f"{counts.queued}; evaluated (pixel, entry) pairs "
+                f"{counts.pairs_before} (every pixel of a segment walks its "
+                f"whole list) = {counts.pairs_before / pairs:.2f}x the "
+                f"{pairs} contributing -> {counts.pairs_after} (the 8x4 "
+                f"blocks the block masks mark) = "
+                f"{counts.pairs_after / pairs:.2f}x")
+            log(f"training shape {kind}: first design {kf} "
+                f"{FIRST_DESIGN_MS[kf]:.4f} ms, {kb} "
+                f"{FIRST_DESIGN_MS[kb]:.4f} ms (NVIDIA H100 80GB HBM3, 700 "
+                f"W, by CUDA events) -> this run {kf} {f_events_ms:.4f} ms "
+                f"by events = {FIRST_DESIGN_MS[kf] / f_events_ms:.2f}x, "
+                f"{kb} {b_events_ms:.4f} ms = "
+                f"{FIRST_DESIGN_MS[kb] / b_events_ms:.2f}x")
         bf, byf = bound(f_bytes, pairs * K1_OPS_PER_PAIR)
         bb, byb = bound(b_bytes, pairs * K2_OPS_PER_PAIR)
         log(f"training shape {kind}{note}: {pairs} contributing (pixel, "
-            f"splat) pairs; {kf} {f_ms:.4f} ms (plain fwd {plain_f_ms:.2f} "
-            f"ms, bound {bf:.5f} ms by {byf}); {kb} {b_ms:.4f} ms (plain "
-            f"bwd {plain_b_ms:.2f} ms, bound {bb:.5f} ms by {byb})")
+            f"splat) pairs; {kf} {f_ms:.4f} ms in a CUDA-graph replay, "
+            f"{f_events_ms:.4f} ms by CUDA events around eager launches "
+            f"(plain fwd {plain_f_ms:.2f} ms, bound {bf:.5f} ms by {byf}); "
+            f"{kb} {b_ms:.4f} ms in a replay, {b_events_ms:.4f} ms by "
+            f"events (plain bwd {plain_b_ms:.2f} ms, bound {bb:.5f} ms by "
+            f"{byb})")
         cu, mod, fl, bl = sources[kind]
         e_f, e_b = errs[kind]
         for name, line, ms, pms, bms, by, err, what in (
@@ -894,7 +961,15 @@ def main():
                 replaces=f"instantsplat_tpu/ops/{mod}:{line}",
                 launches=path_launches[name], max_abs_err=err, ms=ms,
                 plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
-    profile_iterations(params, cam, dev)
+    profile_iterations("dense", params, cam, dev)
+    # the capacity paths, sized for the scene as it now stands (the
+    # profiled steps go on training it)
+    for kind, backend in sized_backends(packed, H, W, (1, 2, 1)).items():
+        forward = kernel_table()[{"binned": "K3", "tiled": "K5"}[kind]]
+        before = forward.launches
+        profile_iterations(kind, params, cam, dev, backend, top=5)
+        if forward.launches == before:
+            fail(f"profile {kind}: {backend} never launched {forward.name}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

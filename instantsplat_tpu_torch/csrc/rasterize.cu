@@ -90,47 +90,18 @@
 // the plain version and move pixels across the 1/255 cutoff. expf and
 // log1pf are the accurate library versions: build without --use_fast_math.
 //
+// The chunk, the block masks, the per-warp lists, both walks and the
+// gradient sums (points 3 to 5) are in compositor.cuh, which the list
+// compositors (rasterize_lists.cu) share.
+//
 // Plain C interface, loaded with ctypes; each entry point returns the
 // cudaError_t of its attribute call or launch.
 
-#include <cuda_runtime.h>
-
-// Built with -DPHASE_CLOCKS (scripts/torch_dense_phases.py), thread 0 of
-// every CTA adds the clock64() cycles it spends in each phase of K1 or K2
-// to phase_clocks[]; phase_clocks_read copies the sums out and clears
-// them. Without the flag PHASE(i) is nothing.
-#ifdef PHASE_CLOCKS
-__device__ unsigned long long phase_clocks[8];
-#define PHASE_START long long phase_tick_ = clock64()
-#define PHASE(i)                                                       \
-  do {                                                                 \
-    if (threadIdx.x == 0) {                                            \
-      const long long now_ = clock64();                                \
-      atomicAdd(&phase_clocks[i], (unsigned long long)(now_ - phase_tick_)); \
-      phase_tick_ = now_;                                              \
-    }                                                                  \
-  } while (0)
-extern "C" int phase_clocks_read(unsigned long long* out) {
-  const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(out, phase_clocks, sizeof(zero));
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(phase_clocks, zero, sizeof(zero));
-  return (int)err;
-}
-#else
-#define PHASE_START
-#define PHASE(i)
-#endif
+#include "compositor.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int BLOCK = TILE * TILE;  // threads per CTA, one per pixel
-constexpr int NWARP = BLOCK / 32;
-constexpr int BLOCK_W = 8, BLOCK_H = 4;  // pixels of a tile that a warp owns
-constexpr int NCOL = 10;            // packed columns
+static_assert(TILE * TILE == BLOCK, "one thread per pixel of a tile");
 constexpr int GROUP = 32;           // splats per bit of the coarse mask
 constexpr int WORD_SPLATS = 32 * GROUP;      // splats per mask word
 constexpr int PASS_WORDS = 64;      // mask words taken in a scan pass
@@ -139,27 +110,7 @@ constexpr int PASS_SPLATS = PASS_GROUPS * GROUP;
 constexpr int GROUP_THREADS = 4;    // threads that test one group together
 constexpr int QCAP = 2048;          // queue entries
 constexpr int DRAIN_AT = 512;       // composite once this many are queued
-constexpr int CHUNK = BLOCK;        // queue entries composited at a time
-constexpr int GRAD_W = 12;          // floats per splat in the gradient scratch
 constexpr int RECT_BLOCK = WORD_SPLATS;      // k1_rects threads per CTA
-constexpr float ALPHA_EPS = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float falloff_power(float dx, float dy, float ca,
-                                               float cb, float cc) {
-  // -0.5 * (ca*dx*dx + cc*dy*dy) - cb*dx*dy, each step rounded on its own
-  const float a = __fmul_rn(__fmul_rn(ca, dx), dx);
-  const float c = __fmul_rn(__fmul_rn(cc, dy), dy);
-  const float b = __fmul_rn(__fmul_rn(cb, dx), dy);
-  return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(a, c)), b);
-}
-
-__device__ __forceinline__ int pack16(int lo, int hi) {
-  return (int)(((unsigned)hi << 16) | ((unsigned)lo & 0xffffu));
-}
-__device__ __forceinline__ int low16(int v) { return (int)(short)(v & 0xffff); }
-__device__ __forceinline__ int high16(int v) { return v >> 16; }
 
 // ---------------------------------------------------------------------------
 // k1_rects
@@ -223,17 +174,9 @@ k1_rects_kernel(const float* __restrict__ packed, int n, int n_tx, int n_ty,
 // the scan and the queue shared by K1 and K2
 // ---------------------------------------------------------------------------
 
-struct Slot {     // one queued splat in shared memory
-  float4 q0;      // mx, my, log-opacity, (unused)
-  float4 q1;      // conic a, b, c, global sorted index (bits)
-  float4 q2;      // r, g, b, depth
-};
-
 struct Shared {
   int queue[QCAP];                      // sorted indices of queued splats
-  Slot slots[CHUNK];                    // the chunk being composited
-  unsigned char blocks[CHUNK];          // its block masks
-  unsigned char mine[NWARP][CHUNK];     // per warp: the slots that reach it
+  Chunk ch;                             // the chunk being composited
   unsigned survivors[PASS_GROUPS];      // per marked group of the pass
   unsigned short marked[PASS_GROUPS];   // the pass's marked groups, sorted
   int marked_total[NWARP], survivor_total[NWARP];  // block_scan's sums
@@ -242,30 +185,6 @@ struct Shared {
 __device__ __forceinline__ unsigned covers(int xs, int ys, int tx, int ty) {
   return tx >= low16(xs) && tx <= high16(xs) && ty >= low16(ys) &&
          ty <= high16(ys);
-}
-
-// Exclusive prefix sum of v over the block's threads, and the block's
-// total; `sums` is NWARP ints of shared memory that are not touched again
-// before the block's next barrier. One barrier.
-__device__ __forceinline__ int block_scan(int v, int* sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += u;
-  }
-  if (lane == 31) sums[warp] = incl;
-  __syncthreads();
-  int before = incl - v, sum = 0;
-#pragma unroll
-  for (int w = 0; w < NWARP; ++w) {
-    const int c = sums[w];
-    before += w < warp ? c : 0;
-    sum += c;
-  }
-  *total = sum;
-  return before;
 }
 
 // One scan pass over PASS_WORDS mask words (PASS_SPLATS splats), for splats
@@ -350,96 +269,11 @@ __device__ __forceinline__ void queue_write(Shared& sh, int pass, int lo,
   }
 }
 
-// The 8x4-pixel blocks of tile (tx, ty), one per warp (bit = 2 * block row
-// + block column), in which the splat can reach alpha >= 1/255: the least
-// of q = ca dx^2 + 2 cb dx dy + cc dy^2 over each pixel row's x range (at
-// dx = -cb dy / ca, clamped to the range) against 2 (lo - log(1/255)),
-// with a slack far above the rounding of this and of the compositor's own
-// power.
-__device__ __forceinline__ unsigned block_mask(float mx, float my, float ca,
-                                               float cb, float cc, float lo,
-                                               float log_alpha_eps, int tx,
-                                               int ty) {
-  const float m2 = 2.f * (lo - log_alpha_eps) + 1e-2f;
-  const float slope = -cb / ca;
-  const float x0 = (float)(tx * TILE) - mx;
-  unsigned mask = 0u;
-#pragma unroll 1
-  for (int row = 0; row < TILE; ++row) {
-    const float dy = (float)(ty * TILE + row) - my;
-    const float t3 = cc * dy * dy, at = slope * dy;
-#pragma unroll
-    for (int bx = 0; bx < TILE / BLOCK_W; ++bx) {
-      const float lo_x = x0 + (float)(bx * BLOCK_W);
-      const float dx = fminf(fmaxf(at, lo_x), lo_x + (float)(BLOCK_W - 1));
-      const float t1 = ca * dx * dx, t2 = 2.f * cb * dx * dy;
-      if (t1 + t2 + t3 <= m2 + 1e-5f * (t1 + fabsf(t2) + t3))
-        mask |= 1u << ((row / BLOCK_H) * (TILE / BLOCK_W) + bx);
-    }
-  }
-  return mask;
-}
-
-// Thread t brings queue entry j into slot t: five 8-byte loads, the block
-// mask, three 16-byte stores.
-__device__ __forceinline__ void load_slot(Shared& sh,
-                                          const float* __restrict__ packed,
-                                          int j, float log_alpha_eps, int tx,
-                                          int ty) {
-  const int t = threadIdx.x;
-  const float2* src =
-      reinterpret_cast<const float2*>(packed + (size_t)j * NCOL);
-  float2 v[5];
-#pragma unroll
-  for (int u = 0; u < 5; ++u) v[u] = __ldg(src + u);
-  sh.blocks[t] = (unsigned char)block_mask(v[0].x, v[0].y, v[1].x, v[1].y,
-                                           v[2].x, v[2].y, log_alpha_eps, tx,
-                                           ty);
-  sh.slots[t].q0 = make_float4(v[0].x, v[0].y, v[2].y, 0.f);
-  sh.slots[t].q1 = make_float4(v[1].x, v[1].y, v[2].x, __int_as_float(j));
-  sh.slots[t].q2 = make_float4(v[3].x, v[3].y, v[4].x, v[4].y);
-}
-
-// The chunk's slots whose block mask marks this warp's block, in order,
-// into the warp's own list; returns how many.
-__device__ __forceinline__ int build_list(Shared& sh, int cnt, int warp,
-                                          int lane) {
-  int n = 0;
-  for (int i = 0; i < cnt; i += 32) {
-    const int k = i + lane;
-    const bool has = k < cnt && ((sh.blocks[k] >> warp) & 1);
-    const unsigned b = __ballot_sync(FULL, has);
-    if (has) sh.mine[warp][n + __popc(b & ((1u << lane) - 1u))] = (unsigned char)k;
-    n += __popc(b);
-  }
-  __syncwarp();
-  return n;
-}
-
 // ---------------------------------------------------------------------------
 // K1
 // ---------------------------------------------------------------------------
 
-struct Pixel {  // one pixel's running composite
-  float logT = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  int last = -1;
-
-  // Adds a contributor (alpha, l = log(1 - alpha), colors q2, index bits);
-  // false when the latched stop fires, which excludes this splat.
-  __device__ __forceinline__ bool add(float alpha, float l, const float4 q2,
-                                      float index_bits, float log_term) {
-    const float logT_post = logT + l;
-    if (logT_post < log_term) return false;
-    const float w = alpha * expf(logT);
-    a0 += w * q2.x;
-    a1 += w * q2.y;
-    a2 += w * q2.z;
-    a3 += w * q2.w;
-    logT = logT_post;
-    last = __float_as_int(index_bits);
-    return true;
-  }
-};
+constexpr int TILE_BLOCKS_X = TILE / BLOCK_W;  // 8x4 blocks side by side
 
 __global__ void __launch_bounds__(BLOCK)
 k1_forward_kernel(const float* __restrict__ packed, int n,
@@ -482,7 +316,8 @@ k1_forward_kernel(const float* __restrict__ packed, int n,
         PHASE(1);
         const int cnt = min(CHUNK, pending - c0);
         if (t < cnt)
-          load_slot(sh, packed, sh.queue[c0 + t], log_alpha_eps, tx, ty);
+          load_slot<TILE, TILE_BLOCKS_X>(sh.ch, packed, sh.queue[c0 + t],
+                                         log_alpha_eps, tx * TILE, ty * TILE);
         PHASE(2);  // rows and block masks
         // barrier for the slots; leave once every pixel has stopped
         if (__syncthreads_count(done) == BLOCK) {
@@ -490,70 +325,21 @@ k1_forward_kernel(const float* __restrict__ packed, int n,
           break;
         }
         PHASE(1);
-        const int n_mine = build_list(sh, cnt, warp, lane);
+        const int n_mine = build_list(sh.ch, cnt, warp, lane);
         PHASE(3);  // the warp's list
-        // two slots at a time: their alphas are independent, only the
-        // transmittance is carried from one to the next
-        for (int i = 0; i < n_mine && !done; i += 2) {
-          const bool two = i + 1 < n_mine;
-          const int ka = sh.mine[warp][i], kb = sh.mine[warp][two ? i + 1 : i];
-          const float4 q0a = sh.slots[ka].q0, q1a = sh.slots[ka].q1;
-          const float4 q0b = sh.slots[kb].q0, q1b = sh.slots[kb].q1;
-          const float pa = falloff_power(fx - q0a.x, fy - q0a.y, q1a.x, q1a.y, q1a.z);
-          const float pb = falloff_power(fx - q0b.x, fy - q0b.y, q1b.x, q1b.y, q1b.z);
-          const float ea = __fadd_rn(pa, q0a.z), eb = __fadd_rn(pb, q0b.z);
-          const float alpha_a = fminf(ALPHA_MAX, expf(ea));
-          const float alpha_b = fminf(ALPHA_MAX, expf(eb));
-          const bool va = !(pa > 0.f) && !(alpha_a < ALPHA_EPS);
-          const bool vb = two && !(pb > 0.f) && !(alpha_b < ALPHA_EPS);
-          if (!va && !vb) continue;
-          const float la = log1pf(-alpha_a), lb = log1pf(-alpha_b);
-          if (va && !px_state.add(alpha_a, la, sh.slots[ka].q2, q1a.w,
-                                  log_term)) {
-            done = true;
-            break;
-          }
-          if (vb && !px_state.add(alpha_b, lb, sh.slots[kb].q2, q1b.w,
-                                  log_term)) {
-            done = true;
-            break;
-          }
-        }
+        walk_forward(sh.ch, n_mine, warp, fx, fy, log_term, px_state, done);
         PHASE(4);  // compositing
       }
       pending = 0;
       if (all_done || written == total) break;
     }
   }
-  if (inside) {
-    const size_t p = (size_t)py * width + px, hw = (size_t)height * width;
-    acc[p] = px_state.a0;
-    acc[hw + p] = px_state.a1;
-    acc[2 * hw + p] = px_state.a2;
-    acc[3 * hw + p] = px_state.a3;
-    tfin[p] = expf(px_state.logT);
-    lc[p] = px_state.last;
-  }
+  if (inside) px_state.store(px, py, height, width, acc, tfin, lc);
 }
 
 // ---------------------------------------------------------------------------
 // K2
 // ---------------------------------------------------------------------------
-
-// One halving step of the warp sum: n values become ceil(n/2). A lane
-// whose bit `o` is clear keeps the lower half and takes its partner's,
-// the other lane the upper half.
-template <int N>
-__device__ __forceinline__ void halve(float (&a)[NCOL], int lane, int o) {
-  constexpr int H = (N + 1) / 2;
-  const bool up = lane & o;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float lo = a[i], hi = i + H < N ? a[i + H] : 0.f;
-    const float got = __shfl_xor_sync(FULL, up ? lo : hi, o);
-    a[i] = (up ? hi : lo) + got;
-  }
-}
 
 __global__ void __launch_bounds__(BLOCK)
 k2_backward_kernel(const float* __restrict__ packed, int n,
@@ -573,41 +359,15 @@ k2_backward_kernel(const float* __restrict__ packed, int n,
   const int px = tx * TILE + (warp & 1) * BLOCK_W + (lane & 7);
   const int py = ty * TILE + (warp >> 1) * BLOCK_H + (lane >> 3);
   const bool inside = px < width && py < height;
-  const float fx = (float)px, fy = (float)py;
-  const size_t p = (size_t)py * width + px, hw = (size_t)height * width;
 
-  const int my_lc = inside ? lc[p] : -1;
-  if (t == 0) s_max_lc = -1;
+  PixelGrad pixel;
+  pixel.fx = (float)px, pixel.fy = (float)py;
+  pixel.my_lc = inside ? lc[(size_t)py * width + px] : -1;
 #pragma unroll
   for (int c = 0; c < GRAD_W; ++c) gsum[t][c] = 0.f;
-  __syncthreads();
-  int mlc = my_lc;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mlc = max(mlc, __shfl_xor_sync(FULL, mlc, o));
-  if (lane == 0) atomicMax(&s_max_lc, mlc);
-  __syncthreads();
-  const int max_lc = min(s_max_lc, n - 1);
+  const int max_lc = min(block_max_lc(pixel.my_lc, &s_max_lc), n - 1);
   if (max_lc < 0) return;  // uniform: no pixel of the tile has a contributor
-
-  float logT = 0.f, gt = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
-  if (inside) {
-    logT = logf(fmaxf(tfin[p], 1e-30f));
-    gt = gtu[p];
-    g0 = g_acc[p];
-    g1 = g_acc[hw + p];
-    g2 = g_acc[2 * hw + p];
-    g3 = g_acc[3 * hw + p];
-  }
-  float S = 0.f;  // sum over later contributors of w * (g . c)
-
-  // the column this lane holds after the butterfly (see halve): the steps
-  // 16, 8, 4, 2 add 5, 3, 2, 1 to the position for a set lane bit; a
-  // position past the step's count holds padding
-  const int p2 = (lane & 2 ? 1 : 0);
-  const int p4 = p2 + (lane & 4 ? 2 : 0);
-  const int p8 = p4 + (lane & 8 ? 3 : 0);
-  const int col = p8 + (lane & 16 ? 5 : 0);
-  const bool holds = !(lane & 1) && p4 < 3 && p8 < 5;
+  pixel.load(inside, px, py, height, width, g_acc, gtu, tfin);
 
   int pending = 0;  // entries queued, at the top end of the queue
   PHASE_START;
@@ -631,78 +391,19 @@ k2_backward_kernel(const float* __restrict__ packed, int n,
         int j = 0;
         if (t < cnt) {
           j = sh.queue[bottom + t];
-          load_slot(sh, packed, j, log_alpha_eps, tx, ty);
+          load_slot<TILE, TILE_BLOCKS_X>(sh.ch, packed, j, log_alpha_eps,
+                                         tx * TILE, ty * TILE);
         }
         PHASE(2);  // rows and block masks
         __syncthreads();
         PHASE(1);
-        const int n_mine = build_list(sh, cnt, warp, lane);
+        const int n_mine = build_list(sh.ch, cnt, warp, lane);
         PHASE(3);  // the warp's list
-        for (int i = n_mine - 1; i >= 0; --i) {
-          const int k = sh.mine[warp][i];
-          const float4 q0 = sh.slots[k].q0, q1 = sh.slots[k].q1;
-          float d[NCOL];
-#pragma unroll
-          for (int c = 0; c < NCOL; ++c) d[c] = 0.f;
-          bool contrib = false;
-          if (__float_as_int(q1.w) <= my_lc) {
-            const float ca = q1.x, cb = q1.y, cc = q1.z;
-            const float dx = fx - q0.x, dy = fy - q0.y;
-            const float power = falloff_power(dx, dy, ca, cb, cc);
-            const float e = __fadd_rn(power, q0.z);
-            const float a_un = expf(e);
-            const float alpha = fminf(ALPHA_MAX, a_un);
-            if (power <= 0.f && alpha >= ALPHA_EPS) {
-              contrib = true;
-              logT -= log1pf(-alpha);  // log T incident on this splat
-              const float T = expf(logT);
-              const float w = alpha * T;
-              const float4 q2 = sh.slots[k].q2;
-              const float b1 = g0 * q2.x + g1 * q2.y + g2 * q2.z + g3 * q2.w;
-              const float dalpha = b1 * T - (S + gt) / (1.f - alpha);
-              S += w * b1;
-              const float dpow = dalpha * (a_un < ALPHA_MAX ? a_un : 0.f);
-              d[0] = dpow * (ca * dx + cb * dy);
-              d[1] = dpow * (cc * dy + cb * dx);
-              d[2] = dpow * (-0.5f * dx * dx);
-              d[3] = dpow * (-dx * dy);
-              d[4] = dpow * (-0.5f * dy * dy);
-              d[5] = dpow;
-              d[6] = w * g0;
-              d[7] = w * g1;
-              d[8] = w * g2;
-              d[9] = w * g3;
-            }
-          }
-          // the list is the warp's, so every lane reaches this vote
-          if (__any_sync(FULL, contrib)) {
-            halve<10>(d, lane, 16);
-            halve<5>(d, lane, 8);
-            halve<3>(d, lane, 4);
-            halve<2>(d, lane, 2);
-            const float v = d[0] + __shfl_xor_sync(FULL, d[0], 1);
-            if (holds) atomicAdd(&gsum[k][col], v);
-          }
-        }
+        walk_backward(sh.ch, gsum, n_mine, warp, lane, pixel);
         PHASE(4);  // the walk
         __syncthreads();  // the chunk's sums are complete
         PHASE(1);
-        if (t < cnt) {
-          const float4* s4 = reinterpret_cast<const float4*>(gsum[t]);
-          const float4 v0 = s4[0], v1 = s4[1], v2 = s4[2];
-          const bool any = v0.x != 0.f || v0.y != 0.f || v0.z != 0.f ||
-                           v0.w != 0.f || v1.x != 0.f || v1.y != 0.f ||
-                           v1.z != 0.f || v1.w != 0.f || v2.x != 0.f ||
-                           v2.y != 0.f;
-          if (any) {
-            float4* dst = reinterpret_cast<float4*>(dscratch + (size_t)j * GRAD_W);
-            atomicAdd(dst, v0);
-            atomicAdd(dst + 1, v1);
-            atomicAdd(dst + 2, v2);
-#pragma unroll
-            for (int c = 0; c < GRAD_W; ++c) gsum[t][c] = 0.f;
-          }
-        }
+        flush_sums(gsum, cnt, j, dscratch);
         PHASE(5);  // flushing the sums
       }
       pending = 0;

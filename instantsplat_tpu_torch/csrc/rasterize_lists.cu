@@ -23,188 +23,256 @@
 // alignment padding and its chunk->segment map are not needed here.
 //
 // Layout. A segment is covered by several CTAs of SEG_ROWS x CTA_COLS
-// pixels, one thread per pixel (K3: 4 x 64, K5: 8 x 32; the TPU's 8 x 128
-// tile would give 192 CTAs at 512x384, too few for 132 SMs). All CTAs of a
-// segment walk its whole list: batches of 256 entries are gathered from
-// packed [N,10] into shared memory, then each pixel evaluates them in
-// order. A CTA leaves as soon as every pixel has stopped. An empty list
-// writes acc 0, T 1, lc -1.
+// pixels (K3/K4: 4 x 64, K5/K6: 8 x 32; the TPU's 8 x 128 tile would give
+// 192 CTAs at 512x384, too few for 132 SMs), one thread per pixel, a warp
+// per 8x4-pixel block: eight blocks side by side in a band's span, four by
+// two in a tile's. A CTA that lies wholly in the padding beyond the image
+// leaves at once. An empty list writes acc 0, T 1, lc -1.
 //
-// What bounds them. As for K1/K2, moving the data is small (K3/K5: 40 B a
-// list entry and 24 B a pixel) and the work is the (pixel, entry) pairs:
-// about 30 float operations, two exps and one log1p each forward, about
-// twice that backward. They are bound by operations; the lists' answer is
-// to evaluate only the splats whose extent reaches the segment (the TPU's
-// sorted-list binning), with the latched stop on top. The 1-D bands still
-// evaluate every splat of the band against every column span; the tiles
-// bound both axes.
+// What bounds them on this card. Not bytes (4 B a list entry, 40 B a
+// splat, 24 B a pixel), and not the operations of the pairs that
+// contribute. In order:
 //
-// K4/K6 start from the list position past the segment's largest
+// 1. The instructions of pairs that contribute nothing. A list bounds one
+//    axis only (a band) or is coarse in both (a tile of 8 x 128), and a
+//    CTA in which every pixel evaluates every entry of its segment's list
+//    evaluates tens of times the pairs that contribute. Answer: the block
+//    masks of compositor.cuh, taken over the CTA's span at its pixel
+//    origin. Thread t computes for queued entry t which of the CTA's eight
+//    8x4 blocks the splat reaches at alpha >= 1/255; each warp compacts the
+//    chunk's slots that reach its block, in list order (order decides lc
+//    and the stop), and walks only those, with no test per slot, two at a
+//    time in the forward.
+// 2. Fetching 40 bytes to reject an entry, in a chain. Most entries of a
+//    segment's list miss a given span. Answer: k1_rects (rasterize.cu) runs
+//    in front, as it does for K1/K2, and the kernels test an entry's 8-byte
+//    tile rectangle against the span's tiles before anything else is read;
+//    the rectangle comes from the same alpha-cutoff radius as the lists, so
+//    it never drops a contributor. The test is a scan apart from the
+//    compositing (scan_pass): 1024 list entries a pass, four independent
+//    index loads and four independent rectangle loads a thread, survivors
+//    placed by ballots and one prefix sum over the warps into a queue in
+//    shared memory, in list order. Only survivors' rows are fetched, 256 at
+//    a time, one thread a row. A pass whose entries all miss costs one test
+//    an entry and no pair. Whole chunks of 256 are composited as soon as
+//    they wait; the incomplete chunk that is left moves to the queue's
+//    front and waits for the next pass. K3/K5 still leave as soon as every
+//    pixel of the CTA has stopped, tested at every chunk.
+// 3. K4/K6's gradient sums: fifty shuffles and ten scalar global atomics
+//    per (entry, warp). Answer: K2's scheme (compositor.cuh): the
+//    12-shuffle halving butterfly, per-slot sums in shared memory, and
+//    after each chunk three atomicAdd(float4*) per (entry, CTA) into a
+//    16-byte-aligned [N, 12] scratch. Atomic order varies, so the sums
+//    vary in the last bits between runs.
+//
+// K4/K6 start from the list position past the CTA's largest
 // last-contributor index (found by a binary search: lists are ascending)
-// and walk back to front. Each pixel rebuilds the transmittance incident on
-// each contributor from T_final, carries the suffix sum S of w * (g . c),
-// and forms d alpha = (g . c) T - (S + g_T T_final) / (1 - alpha), exactly
-// as K2. The ten gradients are summed across the warp with shuffles and
-// lane 0 adds them into dpacked at the entry's global index with atomicAdd.
-// The TPU wrote per-slot rows and folded them through an inverse slot map
-// because its scatter-add is serialized; that workaround is not ported.
-// Atomic order varies, so the sums vary in the last bits between runs.
+// and scan and walk back to front, filling the queue from its top end
+// downward. Each pixel skips the entries past its own last contributor,
+// rebuilds the transmittance incident on each contributor from T_final,
+// carries the suffix sum S of w * (g . c), and forms d alpha = (g . c) T -
+// (S + g_T T_final) / (1 - alpha), exactly as K2. The TPU wrote per-slot
+// rows and folded them through an inverse slot map because its scatter-add
+// is serialized; that workaround is not ported.
 //
 // Numerics as K1/K2: the falloff power with explicitly rounded
 // __fmul_rn/__fadd_rn (no FMA contraction), the accurate expf/log1pf (build
-// without --use_fast_math), log(1e-4) passed in from Python.
+// without --use_fast_math), log(1e-4) and log(1/255) passed in from Python,
+// transmittance as exp of a sum of logs. Tensor cores do not apply to this
+// per-pair transcendental work. Shared memory is static and under 48 KB
+// (forward 20 KB, backward 32 KB), so five or six CTAs share an SM and fill
+// each other's barriers (BINNED_MIN_CTAS, TILED_MIN_CTAS).
 //
 // Plain C interface, loaded with ctypes; each entry point returns the
 // cudaError_t of its launch.
 
-#include <cuda_runtime.h>
+#include "compositor.cuh"
 
 namespace {
 
-constexpr int BLOCK = 256;  // threads per CTA, one per pixel
-constexpr int BATCH = 256;  // list entries per shared-memory batch
-constexpr int NCOL = 10;    // packed columns
-constexpr float ALPHA_EPS = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
+constexpr int LANE_ENTRIES = 4;  // list entries a thread tests in a scan pass
+constexpr int WARP_ENTRIES = 32 * LANE_ENTRIES;
+constexpr int PASS = NWARP * WARP_ENTRIES;  // list entries a scan pass takes
+constexpr int QCAP = PASS + CHUNK;  // a pass's survivors and a waiting chunk
 
-struct SharedBatch {
-  float col[NCOL][BATCH];  // splat columns of the batch's entries
-  int idx[BATCH];          // global (sorted) index of each entry
+struct Shared {
+  int queue[QCAP];     // splat indices of the entries that passed the scan
+  Chunk ch;            // the chunk being composited
+  int sums[2][NWARP];  // survivors per warp, by the pass's parity
 };
 
-__device__ __forceinline__ float falloff_power(float dx, float dy, float ca,
-                                               float cb, float cc) {
-  // -0.5 * (ca*dx*dx + cc*dy*dy) - cb*dx*dy, each step rounded on its own
-  const float a = __fmul_rn(__fmul_rn(ca, dx), dx);
-  const float c = __fmul_rn(__fmul_rn(cc, dy), dy);
-  const float b = __fmul_rn(__fmul_rn(cb, dx), dy);
-  return __fsub_rn(__fmul_rn(-0.5f, __fadd_rn(a, c)), b);
-}
-
-// Gathers entries [first, first + count) of `order` (count <= BATCH) into
-// shared memory and synchronises. Every thread of the block must call it;
-// the caller synchronises before the call so the previous batch is no
-// longer read.
-__device__ __forceinline__ void load_entries(SharedBatch& sb,
-                                             const float* __restrict__ packed,
-                                             const int* __restrict__ order,
-                                             int first, int count) {
-  const int t = threadIdx.x;
-  if (t < count) {
-    const int j = order[first + t];
-    const float* src = packed + (size_t)j * NCOL;
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c) sb.col[c][t] = src[c];
-    sb.idx[t] = j;
-  }
-  __syncthreads();
-}
-
-// Pixel of this thread: segment blockIdx.x of a grid of n_seg_cols segments
-// per row, column span blockIdx.y of CTA_COLS pixels inside the segment.
+// The SEG_ROWS x CTA_COLS pixels of this CTA: segment blockIdx.x of a grid
+// of n_seg_cols segments per row, column span blockIdx.y inside the
+// segment; and this thread's pixel, in its warp's 8x4 block.
 template <int SEG_ROWS, int CTA_COLS>
-struct PixelOf {
-  int px, py;
-  __device__ PixelOf(int n_seg_cols, int seg_w) {
-    const int seg = blockIdx.x;
+struct Span {
+  static constexpr int BLOCKS_X = CTA_COLS / BLOCK_W;
+  static_assert(SEG_ROWS * CTA_COLS == BLOCK, "one thread per pixel");
+  static_assert(TILE % SEG_ROWS == 0 && CTA_COLS % TILE == 0,
+                "a span lies in one row of rectangle tiles");
+  int x0, y0;          // pixel origin
+  int px, py;          // this thread's pixel
+  int tx_lo, tx_hi, ty;  // the rectangle tiles the span lies in
+  __device__ Span(int n_seg_cols, int seg_w) {
+    const int seg = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int sy = seg / n_seg_cols, sx = seg - sy * n_seg_cols;
-    px = sx * seg_w + blockIdx.y * CTA_COLS + (int)threadIdx.x % CTA_COLS;
-    py = sy * SEG_ROWS + (int)threadIdx.x / CTA_COLS;
+    x0 = sx * seg_w + blockIdx.y * CTA_COLS;
+    y0 = sy * SEG_ROWS;
+    px = x0 + (warp % BLOCKS_X) * BLOCK_W + (lane & 7);
+    py = y0 + (warp / BLOCKS_X) * BLOCK_H + (lane >> 3);
+    tx_lo = x0 / TILE;
+    tx_hi = tx_lo + CTA_COLS / TILE - 1;
+    ty = y0 / TILE;
+  }
+  // the tile rectangle (xs, ys) reaches the span
+  __device__ __forceinline__ bool reached_by(int xs, int ys) const {
+    return low16(xs) <= tx_hi && high16(xs) >= tx_lo && low16(ys) <= ty &&
+           high16(ys) >= ty;
   }
 };
 
-template <int SEG_ROWS, int CTA_COLS>
-__global__ void __launch_bounds__(BLOCK)
+// One scan pass: entries [pass * PASS, (pass + 1) * PASS) of the list, up
+// to `limit`. Each warp takes WARP_ENTRIES consecutive entries, a lane
+// every 32nd; the entries whose tile rectangle reaches the span go to the
+// queue in list order, from queue[at] upward, or (FROM_TOP) so that they
+// end below queue[at]. Returns how many. One barrier, before the queue is
+// written; the caller synchronises before it reads the queue.
+template <bool FROM_TOP, class SpanT>
+__device__ __forceinline__ int scan_pass(Shared& sh,
+                                         const int* __restrict__ list,
+                                         const int2* __restrict__ rect,
+                                         const SpanT& span, int pass,
+                                         int limit, int at) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e0 = pass * PASS + warp * WARP_ENTRIES + lane;
+  int j[LANE_ENTRIES];
+#pragma unroll
+  for (int u = 0; u < LANE_ENTRIES; ++u) {
+    const int e = e0 + 32 * u;
+    j[u] = e < limit ? __ldg(list + e) : -1;
+  }
+  int2 r[LANE_ENTRIES];
+#pragma unroll
+  for (int u = 0; u < LANE_ENTRIES; ++u)
+    r[u] = j[u] >= 0 ? __ldg(rect + j[u]) : make_int2(0, 0);
+  int pos[LANE_ENTRIES], n = 0;  // place among the warp's survivors, or -1
+#pragma unroll
+  for (int u = 0; u < LANE_ENTRIES; ++u) {
+    const bool hit = j[u] >= 0 && span.reached_by(r[u].x, r[u].y);
+    const unsigned b = __ballot_sync(FULL, hit);
+    pos[u] = hit ? n + __popc(b & ((1u << lane) - 1u)) : -1;
+    n += __popc(b);
+  }
+  int* sums = sh.sums[pass & 1];
+  if (lane == 0) sums[warp] = n;
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < NWARP; ++w) {
+    const int c = sums[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  int* dst = sh.queue + (FROM_TOP ? at - total : at) + before;
+#pragma unroll
+  for (int u = 0; u < LANE_ENTRIES; ++u)
+    if (pos[u] >= 0) dst[pos[u]] = j[u];
+  return total;
+}
+
+template <int SEG_ROWS, int CTA_COLS, int MIN_CTAS>
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 lists_forward_kernel(const float* __restrict__ packed,
+                     const int2* __restrict__ rect,
                      const int* __restrict__ order,
                      const int* __restrict__ seg_start,
                      const int* __restrict__ seg_count, int n_seg_cols,
                      int seg_w, int height, int width, float log_term,
-                     float* __restrict__ acc, float* __restrict__ tfin,
-                     int* __restrict__ lc) {
-  static_assert(SEG_ROWS * CTA_COLS == BLOCK, "one thread per pixel");
-  __shared__ SharedBatch sb;
-  const PixelOf<SEG_ROWS, CTA_COLS> pix(n_seg_cols, seg_w);
-  const bool inside = pix.px < width && pix.py < height;
-  const float fx = (float)pix.px, fy = (float)pix.py;
-  const int first = seg_start[blockIdx.x], count = seg_count[blockIdx.x];
+                     float log_alpha_eps, float* __restrict__ acc,
+                     float* __restrict__ tfin, int* __restrict__ lc) {
+  using SpanT = Span<SEG_ROWS, CTA_COLS>;
+  __shared__ Shared sh;
+  const SpanT span(n_seg_cols, seg_w);
+  if (span.x0 >= width || span.y0 >= height) return;  // uniform: padding
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool inside = span.px < width && span.py < height;
+  const float fx = (float)span.px, fy = (float)span.py;
+  const int* list = order + seg_start[blockIdx.x];
+  const int count = seg_count[blockIdx.x];
+  const int n_passes = (count + PASS - 1) / PASS;
 
-  float logT = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  int last = -1;
-  bool done = !inside;
-  for (int b = 0; b < count; b += BATCH) {
-    // doubles as the barrier before load_entries overwrites shared memory
-    if (__syncthreads_count(done) == BLOCK) break;
-    const int cnt = min(BATCH, count - b);
-    load_entries(sb, packed, order, first + b, cnt);
-    if (done) continue;
-    for (int k = 0; k < cnt; ++k) {
-      const float dx = fx - sb.col[0][k], dy = fy - sb.col[1][k];
-      const float power =
-          falloff_power(dx, dy, sb.col[2][k], sb.col[3][k], sb.col[4][k]);
-      if (power > 0.f) continue;
-      const float alpha =
-          fminf(ALPHA_MAX, expf(__fadd_rn(power, sb.col[5][k])));
-      if (alpha < ALPHA_EPS) continue;
-      const float l = log1pf(-alpha);
-      const float logT_post = logT + l;
-      if (logT_post < log_term) {  // latched stop; this splat is excluded
-        done = true;
+  Pixel pixel;
+  bool done = !inside, all_done = false;
+  int pending = 0;  // queue entries waiting to be composited
+
+  PHASE_START;
+  for (int pass = 0; pass < n_passes && !all_done; ++pass) {
+    pending += scan_pass<false>(sh, list, rect, span, pass, count, pending);
+    PHASE(0);  // scan
+    const bool last = pass + 1 == n_passes;
+    if (pending < CHUNK && !last) continue;
+    // composite whole chunks, and on the last pass the incomplete one too
+    __syncthreads();  // queue written; the slots' last readers are through
+    PHASE(1);  // waiting for the other warps
+    int c0 = 0;
+    for (; c0 < pending && (last || c0 + CHUNK <= pending); c0 += CHUNK) {
+      if (c0 != 0) __syncthreads();  // the previous chunk's slots are read
+      PHASE(1);
+      const int cnt = min(CHUNK, pending - c0);
+      if (t < cnt)
+        load_slot<SEG_ROWS, SpanT::BLOCKS_X>(sh.ch, packed, sh.queue[c0 + t],
+                                             log_alpha_eps, span.x0, span.y0);
+      PHASE(2);  // rows and block masks
+      // barrier for the slots; leave once every pixel has stopped
+      if (__syncthreads_count(done) == BLOCK) {
+        all_done = true;
         break;
       }
-      const float w = alpha * expf(logT);
-      a0 += w * sb.col[6][k];
-      a1 += w * sb.col[7][k];
-      a2 += w * sb.col[8][k];
-      a3 += w * sb.col[9][k];
-      logT = logT_post;
-      last = sb.idx[k];
+      PHASE(1);
+      const int n_mine = build_list(sh.ch, cnt, warp, lane);
+      PHASE(3);  // the warp's list
+      walk_forward(sh.ch, n_mine, warp, fx, fy, log_term, pixel, done);
+      PHASE(4);  // compositing
     }
+    // what is left, less than a chunk and stored past the first chunk,
+    // moves to the front; the next pass writes behind it after its barrier
+    const int left = all_done ? 0 : max(pending - c0, 0);
+    if (t < left) sh.queue[t] = sh.queue[c0 + t];
+    pending = left;
   }
-  if (inside) {
-    const size_t p = (size_t)pix.py * width + pix.px;
-    const size_t hw = (size_t)height * width;
-    acc[p] = a0;
-    acc[hw + p] = a1;
-    acc[2 * hw + p] = a2;
-    acc[3 * hw + p] = a3;
-    tfin[p] = expf(logT);
-    lc[p] = last;
-  }
+  if (inside) pixel.store(span.px, span.py, height, width, acc, tfin, lc);
 }
 
-template <int SEG_ROWS, int CTA_COLS>
-__global__ void __launch_bounds__(BLOCK)
+template <int SEG_ROWS, int CTA_COLS, int MIN_CTAS>
+__global__ void __launch_bounds__(BLOCK, MIN_CTAS)
 lists_backward_kernel(const float* __restrict__ packed,
+                      const int2* __restrict__ rect,
                       const int* __restrict__ order,
                       const int* __restrict__ seg_start,
                       const int* __restrict__ seg_count, int n_seg_cols,
-                      int seg_w, int height, int width,
+                      int seg_w, int height, int width, float log_alpha_eps,
                       const float* __restrict__ g_acc,
                       const float* __restrict__ gtu,
                       const float* __restrict__ tfin,
                       const int* __restrict__ lc,
-                      float* __restrict__ dpacked) {
-  static_assert(SEG_ROWS * CTA_COLS == BLOCK, "one thread per pixel");
-  __shared__ SharedBatch sb;
+                      float* __restrict__ dscratch) {
+  using SpanT = Span<SEG_ROWS, CTA_COLS>;
+  __shared__ Shared sh;
+  __shared__ __align__(16) float gsum[CHUNK][GRAD_W];  // per-slot sums
   __shared__ int s_max_lc, s_end;
-  const int t = threadIdx.x, lane = t & 31;
-  const PixelOf<SEG_ROWS, CTA_COLS> pix(n_seg_cols, seg_w);
-  const bool inside = pix.px < width && pix.py < height;
-  const float fx = (float)pix.px, fy = (float)pix.py;
-  const size_t p = (size_t)pix.py * width + pix.px;
-  const size_t hw = (size_t)height * width;
-  const int first = seg_start[blockIdx.x], count = seg_count[blockIdx.x];
+  const SpanT span(n_seg_cols, seg_w);
+  if (span.x0 >= width || span.y0 >= height) return;  // uniform: padding
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const bool inside = span.px < width && span.py < height;
+  const int* list = order + seg_start[blockIdx.x];
+  const int count = seg_count[blockIdx.x];
 
-  const int my_lc = inside ? lc[p] : -1;
-  if (t == 0) s_max_lc = -1;
-  __syncthreads();
-  int m = my_lc;
+  PixelGrad pixel;
+  pixel.fx = (float)span.px, pixel.fy = (float)span.py;
+  pixel.my_lc = inside ? lc[(size_t)span.py * width + span.px] : -1;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if (lane == 0) atomicMax(&s_max_lc, m);
-  __syncthreads();
-  const int max_lc = s_max_lc;
+  for (int c = 0; c < GRAD_W; ++c) gsum[t][c] = 0.f;
+  const int max_lc = block_max_lc(pixel.my_lc, &s_max_lc);
   if (max_lc < 0) return;  // uniform: no pixel of the CTA has a contributor
   if (t == 0) {
     // entries past the largest last contributor contribute nowhere: the
@@ -212,153 +280,142 @@ lists_backward_kernel(const float* __restrict__ packed,
     int lo = 0, hi = count;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (order[first + mid] <= max_lc) lo = mid + 1; else hi = mid;
+      if (list[mid] <= max_lc) lo = mid + 1; else hi = mid;
     }
     s_end = lo;
   }
   __syncthreads();
   const int end = s_end;
+  pixel.load(inside, span.px, span.py, height, width, g_acc, gtu, tfin);
 
-  float logT = 0.f, gt = 0.f, g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
-  if (inside) {
-    logT = logf(fmaxf(tfin[p], 1e-30f));
-    gt = gtu[p];
-    g0 = g_acc[p];
-    g1 = g_acc[hw + p];
-    g2 = g_acc[2 * hw + p];
-    g3 = g_acc[3 * hw + p];
-  }
-  float S = 0.f;  // sum over later contributors of w * (g . c)
-
-  for (int b = ((end - 1) / BATCH) * BATCH; b >= 0 && end > 0; b -= BATCH) {
-    const int cnt = min(BATCH, end - b);
-    __syncthreads();
-    load_entries(sb, packed, order, first + b, cnt);
-    for (int k = cnt - 1; k >= 0; --k) {
-      const int j = sb.idx[k];
-      float d[NCOL];
-#pragma unroll
-      for (int c = 0; c < NCOL; ++c) d[c] = 0.f;
-      bool contrib = false;
-      if (j <= my_lc) {
-        const float ca = sb.col[2][k], cb = sb.col[3][k], cc = sb.col[4][k];
-        const float dx = fx - sb.col[0][k], dy = fy - sb.col[1][k];
-        const float power = falloff_power(dx, dy, ca, cb, cc);
-        const float a_un = expf(__fadd_rn(power, sb.col[5][k]));
-        const float alpha = fminf(ALPHA_MAX, a_un);
-        if (power <= 0.f && alpha >= ALPHA_EPS) {
-          contrib = true;
-          logT -= log1pf(-alpha);  // log T incident on splat j
-          const float T = expf(logT);
-          const float w = alpha * T;
-          const float c0 = sb.col[6][k], c1 = sb.col[7][k];
-          const float c2 = sb.col[8][k], c3 = sb.col[9][k];
-          const float b1 = g0 * c0 + g1 * c1 + g2 * c2 + g3 * c3;
-          const float dalpha = b1 * T - (S + gt) / (1.f - alpha);
-          S += w * b1;
-          const float dpow = dalpha * (a_un < ALPHA_MAX ? a_un : 0.f);
-          d[0] = dpow * (ca * dx + cb * dy);
-          d[1] = dpow * (cc * dy + cb * dx);
-          d[2] = dpow * (-0.5f * dx * dx);
-          d[3] = dpow * (-dx * dy);
-          d[4] = dpow * (-0.5f * dy * dy);
-          d[5] = dpow;
-          d[6] = w * g0;
-          d[7] = w * g1;
-          d[8] = w * g2;
-          d[9] = w * g3;
-        }
+  int pending = 0;  // entries queued, at the top end of the queue
+  PHASE_START;
+  for (int pass = (end - 1) / PASS; pass >= 0 && end > 0; --pass) {
+    pending += scan_pass<true>(sh, list, rect, span, pass, end,
+                               QCAP - pending);
+    PHASE(0);  // scan
+    const bool last = pass == 0;
+    if (pending < CHUNK && !last) continue;
+    // whole chunks from the top, and on the last pass the incomplete one
+    __syncthreads();  // queue written
+    PHASE(1);  // waiting for the other warps
+    const int low = QCAP - pending;
+    int top = QCAP;
+    while (top > low && (last || top - CHUNK >= low)) {
+      // slots and sums are free: a barrier follows every chunk's walk
+      const int bottom = max(top - CHUNK, low), cnt = top - bottom;
+      int j = 0;
+      if (t < cnt) {
+        j = sh.queue[bottom + t];
+        load_slot<SEG_ROWS, SpanT::BLOCKS_X>(sh.ch, packed, j, log_alpha_eps,
+                                             span.x0, span.y0);
       }
-      // cnt is uniform over the block, so every lane reaches this vote
-      if (__any_sync(0xffffffffu, contrib)) {
-#pragma unroll
-        for (int c = 0; c < NCOL; ++c) {
-          float v = d[c];
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            v += __shfl_down_sync(0xffffffffu, v, o);
-          d[c] = v;
-        }
-        if (lane == 0) {
-          float* dst = dpacked + (size_t)j * NCOL;
-#pragma unroll
-          for (int c = 0; c < NCOL; ++c) atomicAdd(dst + c, d[c]);
-        }
-      }
+      PHASE(2);  // rows and block masks
+      __syncthreads();
+      PHASE(1);
+      const int n_mine = build_list(sh.ch, cnt, warp, lane);
+      PHASE(3);  // the warp's list
+      walk_backward(sh.ch, gsum, n_mine, warp, lane, pixel);
+      PHASE(4);  // the walk
+      __syncthreads();  // the chunk's sums are complete
+      PHASE(1);
+      flush_sums(gsum, cnt, j, dscratch);
+      PHASE(5);  // flushing the sums
+      top = bottom;
     }
+    // what is left, less than a chunk and stored below the top chunk,
+    // moves up to the top; the next pass writes below it after its barrier
+    const int left = top - low;
+    if (t < left) sh.queue[QCAP - left + t] = sh.queue[low + t];
+    pending = left;
   }
 }
 
 // Segment geometry of each backend: rows per segment (the TPU kernels'
-// BLOCK_ROWS) and pixels per CTA row.
-constexpr int BINNED_ROWS = 4, BINNED_CTA_COLS = 64;
-constexpr int TILED_ROWS = 8, TILED_CTA_COLS = 32;
+// BLOCK_ROWS) and pixels per CTA row; and the CTAs per SM that the compiler
+// fits the registers to (6: 40 a thread, 5: 48, a few spilled either way).
+// A launch at 512x384 is 768 CTAs: the 70-odd registers the compiler takes
+// unbounded leave 396 resident, 5 an SM 660, 6 an SM all of them. The band
+// spans gain from 6; the tile spans pay more for the spills than they gain.
+constexpr int BINNED_ROWS = 4, BINNED_CTA_COLS = 64, BINNED_MIN_CTAS = 6;
+constexpr int TILED_ROWS = 8, TILED_CTA_COLS = 32, TILED_MIN_CTAS = 5;
 
-template <int SEG_ROWS, int CTA_COLS>
-int launch_forward(const float* packed, const int* order,
+bool bad_geometry(int n_seg, int n_seg_cols, int seg_w, int cta_cols) {
+  return n_seg <= 0 || n_seg_cols <= 0 || n_seg % n_seg_cols != 0 ||
+         seg_w <= 0 || seg_w % cta_cols != 0;
+}
+
+template <int SEG_ROWS, int CTA_COLS, int MIN_CTAS>
+int launch_forward(const float* packed, const int* rect, const int* order,
                    const int* seg_start, const int* seg_count, int n_seg,
                    int n_seg_cols, int seg_w, int height, int width,
-                   float log_term, float* acc, float* tfin, int* lc,
-                   void* stream) {
-  if (n_seg <= 0 || n_seg_cols <= 0 || n_seg % n_seg_cols != 0 ||
-      seg_w <= 0 || seg_w % CTA_COLS != 0)
+                   float log_term, float log_alpha_eps, float* acc,
+                   float* tfin, int* lc, void* stream) {
+  if (bad_geometry(n_seg, n_seg_cols, seg_w, CTA_COLS))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n_seg, seg_w / CTA_COLS);
-  lists_forward_kernel<SEG_ROWS, CTA_COLS>
+  lists_forward_kernel<SEG_ROWS, CTA_COLS, MIN_CTAS>
       <<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-          packed, order, seg_start, seg_count, n_seg_cols, seg_w, height,
-          width, log_term, acc, tfin, lc);
+          packed, reinterpret_cast<const int2*>(rect), order, seg_start,
+          seg_count, n_seg_cols, seg_w, height, width, log_term,
+          log_alpha_eps, acc, tfin, lc);
   return (int)cudaGetLastError();
 }
 
-template <int SEG_ROWS, int CTA_COLS>
-int launch_backward(const float* packed, const int* order,
+template <int SEG_ROWS, int CTA_COLS, int MIN_CTAS>
+int launch_backward(const float* packed, const int* rect, const int* order,
                     const int* seg_start, const int* seg_count, int n_seg,
                     int n_seg_cols, int seg_w, int height, int width,
-                    const float* g_acc, const float* gtu, const float* tfin,
-                    const int* lc, float* dpacked, void* stream) {
-  if (n_seg <= 0 || n_seg_cols <= 0 || n_seg % n_seg_cols != 0 ||
-      seg_w <= 0 || seg_w % CTA_COLS != 0)
+                    float log_alpha_eps, const float* g_acc,
+                    const float* gtu, const float* tfin, const int* lc,
+                    float* dscratch, void* stream) {
+  if (bad_geometry(n_seg, n_seg_cols, seg_w, CTA_COLS))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n_seg, seg_w / CTA_COLS);
-  lists_backward_kernel<SEG_ROWS, CTA_COLS>
+  lists_backward_kernel<SEG_ROWS, CTA_COLS, MIN_CTAS>
       <<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-          packed, order, seg_start, seg_count, n_seg_cols, seg_w, height,
-          width, g_acc, gtu, tfin, lc, dpacked);
+          packed, reinterpret_cast<const int2*>(rect), order, seg_start,
+          seg_count, n_seg_cols, seg_w, height, width, log_alpha_eps, g_acc,
+          gtu, tfin, lc, dscratch);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 #define FORWARD_ARGS                                                        \
-  const float *packed, const int *order, const int *seg_start,             \
-      const int *seg_count, int n_seg, int n_seg_cols, int seg_w,          \
-      int height, int width, float log_term, float *acc, float *tfin,      \
-      int *lc, void *stream
+  const float *packed, const int *rect, const int *order,                  \
+      const int *seg_start, const int *seg_count, int n_seg,               \
+      int n_seg_cols, int seg_w, int height, int width, float log_term,    \
+      float log_alpha_eps, float *acc, float *tfin, int *lc, void *stream
 #define FORWARD_CALL                                                        \
-  packed, order, seg_start, seg_count, n_seg, n_seg_cols, seg_w, height,  \
-      width, log_term, acc, tfin, lc, stream
+  packed, rect, order, seg_start, seg_count, n_seg, n_seg_cols, seg_w,     \
+      height, width, log_term, log_alpha_eps, acc, tfin, lc, stream
 #define BACKWARD_ARGS                                                       \
-  const float *packed, const int *order, const int *seg_start,             \
-      const int *seg_count, int n_seg, int n_seg_cols, int seg_w,          \
-      int height, int width, const float *g_acc, const float *gtu,         \
-      const float *tfin, const int *lc, float *dpacked, void *stream
+  const float *packed, const int *rect, const int *order,                  \
+      const int *seg_start, const int *seg_count, int n_seg,               \
+      int n_seg_cols, int seg_w, int height, int width,                    \
+      float log_alpha_eps, const float *g_acc, const float *gtu,           \
+      const float *tfin, const int *lc, float *dscratch, void *stream
 #define BACKWARD_CALL                                                       \
-  packed, order, seg_start, seg_count, n_seg, n_seg_cols, seg_w, height,  \
-      width, g_acc, gtu, tfin, lc, dpacked, stream
+  packed, rect, order, seg_start, seg_count, n_seg, n_seg_cols, seg_w,     \
+      height, width, log_alpha_eps, g_acc, gtu, tfin, lc, dscratch, stream
 
 extern "C" int k3_forward(FORWARD_ARGS) {
-  return launch_forward<BINNED_ROWS, BINNED_CTA_COLS>(FORWARD_CALL);
+  return launch_forward<BINNED_ROWS, BINNED_CTA_COLS, BINNED_MIN_CTAS>(
+      FORWARD_CALL);
 }
 
 extern "C" int k4_backward(BACKWARD_ARGS) {
-  return launch_backward<BINNED_ROWS, BINNED_CTA_COLS>(BACKWARD_CALL);
+  return launch_backward<BINNED_ROWS, BINNED_CTA_COLS, BINNED_MIN_CTAS>(
+      BACKWARD_CALL);
 }
 
 extern "C" int k5_forward(FORWARD_ARGS) {
-  return launch_forward<TILED_ROWS, TILED_CTA_COLS>(FORWARD_CALL);
+  return launch_forward<TILED_ROWS, TILED_CTA_COLS, TILED_MIN_CTAS>(
+      FORWARD_CALL);
 }
 
 extern "C" int k6_backward(BACKWARD_ARGS) {
-  return launch_backward<TILED_ROWS, TILED_CTA_COLS>(BACKWARD_CALL);
+  return launch_backward<TILED_ROWS, TILED_CTA_COLS, TILED_MIN_CTAS>(
+      BACKWARD_CALL);
 }

@@ -2,7 +2,9 @@
 
 `load_library("rasterize.cu")` compiles csrc/rasterize.cu with nvcc for
 sm_90a into build/instantsplat_tpu_torch/<name>-<hash>/ under the repository
-root, keyed by a hash of the source and the flags, and loads it. The
+root, keyed by a hash of the source, of every header of csrc/ (the sources
+share compositor.cuh; an edited header must not load a stale library) and
+of the flags, and loads it. The
 compiler's `-Xptxas -v` report (registers, shared memory, spills) is kept
 beside the library. A missing nvcc or a failed build raises; nothing falls
 back to another implementation.
@@ -39,9 +41,17 @@ def find_nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
+def headers() -> list[Path]:
+    """The headers of csrc/, which any source may include."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256()
+    for path in (CSRC / source, *headers()):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     stem = Path(source).stem
     return BUILD_ROOT / f"{stem}-{digest[:16]}" / f"lib{stem}.so"
 
@@ -54,7 +64,8 @@ def build(source: str) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {source}:\n"

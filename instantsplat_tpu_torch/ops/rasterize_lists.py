@@ -18,12 +18,21 @@ is not materialised: a list is `order[seg_start : seg_start + seg_count]`,
 seg_count being what fits (`slot_start` keeps the TPU slot position, so
 the layout can be checked against the JAX package).
 
-`composite_lists` is the entry point: on a CUDA tensor it launches the
+`composite_lists` is the entry point: on a CUDA tensor it launches
+k1_rects (the dense backend's rectangle pass, csrc/rasterize.cu), the
 backend's forward kernel and, in the backward, its backward kernel
-(csrc/rasterize_lists.cu); on a CPU tensor it runs the plain version,
+(csrc/rasterize_lists.cu; its header note says what bounds them and how
+the design answers); on a CPU tensor it runs the plain version,
 `composite_lists_plain`, which takes the same lists and walks each one
 with the plain compositor's arithmetic (ops/rasterize.py::_chunk_step);
 its autograd is the backward kernel's plain version.
+
+What the kernels cull by, inside a segment's list, has its plain version
+here: `span_reached` (the test of a splat's 8-byte tile rectangle against a
+CTA's span of pixels, made before anything else of the splat is read) and
+`rasterize_pallas.span_block_masks` (the 8x4 blocks of the span a splat
+reaches; a warp walks only the entries that reach its block).
+`list_counts` counts what they save.
 """
 
 from __future__ import annotations
@@ -39,10 +48,21 @@ from instantsplat_tpu_torch.ops.rasterize import (
     cutoff_radius,
 )
 from instantsplat_tpu_torch.ops.rasterize_pallas import (
+    BLOCK_H,
+    BLOCK_W,
+    GRAD_W,
+    LOG_ALPHA_EPS,
     NCOL,
+    TILE,
+    WORD_SPLATS,
     Kernel,
     _check,
+    _check_packed,
     _stream,
+    grad_columns,
+    k1_rects,
+    span_block_masks,
+    splat_rects,
 )
 
 G_CHUNK = 256  # slot alignment of each list in the TPU slot layout
@@ -138,78 +158,156 @@ def capacity(cap_factor: int, n: int, n_seg: int) -> int:
 # ---- kernels -----------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FORWARD_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P]
-BACKWARD_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                     _P]
+# packed, rect, order, seg_start, seg_count | n_seg, n_seg_cols, seg_w,
+# height, width | ...
+FORWARD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P, _P,
+                    _P, _P]
+BACKWARD_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P,
+                     _P, _P, _P]
 
 
-def _check_lists(packed, lists: SlotLists, geom: ListGeometry):
-    n = packed.shape[0]
-    _check(packed, "packed", torch.float32, (n, NCOL))
+def _check_lists(packed, rect, lists: SlotLists, geom: ListGeometry,
+                 height: int, width: int):
+    n = _check_packed(packed, height, width)
+    _check(rect, "rect", torch.int16,
+           (-(-n // WORD_SPLATS) * WORD_SPLATS, 4))
     _check(lists.order, "order", torch.int32, (lists.order.shape[0],))
     _check(lists.seg_start, "seg_start", torch.int32, (geom.n_seg,))
     _check(lists.seg_count, "seg_count", torch.int32, (geom.n_seg,))
 
 
-def lists_forward(kernel: Kernel, packed: torch.Tensor, lists: SlotLists,
-                  geom: ListGeometry, height: int, width: int):
-    """Launch a list forward kernel (K3 or K5).
+def lists_forward(kernel: Kernel, packed: torch.Tensor, rect: torch.Tensor,
+                  lists: SlotLists, geom: ListGeometry, height: int,
+                  width: int):
+    """Launch a list forward kernel (K3 or K5); `rect` are the splats' tile
+    rectangles as k1_rects writes them (`DenseScan.rect`).
     -> (acc [4,H,W] f32, tfin [H,W] f32, lc [H,W] int32)."""
-    _check_lists(packed, lists, geom)
+    _check_lists(packed, rect, lists, geom, height, width)
     dev = packed.device
     acc = torch.empty((4, height, width), device=dev)
     tfin = torch.empty((height, width), device=dev)
     lc = torch.empty((height, width), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        kernel(packed.data_ptr(), lists.order.data_ptr(),
+        kernel(packed.data_ptr(), rect.data_ptr(), lists.order.data_ptr(),
                lists.seg_start.data_ptr(), lists.seg_count.data_ptr(),
                geom.n_seg, geom.n_cols, geom.seg_w, height, width, LOG_TERM,
-               acc.data_ptr(), tfin.data_ptr(), lc.data_ptr(), _stream())
+               LOG_ALPHA_EPS, acc.data_ptr(), tfin.data_ptr(), lc.data_ptr(),
+               _stream())
     return acc, tfin, lc
 
 
-def lists_backward(kernel: Kernel, packed: torch.Tensor, lists: SlotLists,
-                   geom: ListGeometry, g_acc: torch.Tensor,
+def lists_backward(kernel: Kernel, packed: torch.Tensor, rect: torch.Tensor,
+                   lists: SlotLists, geom: ListGeometry, g_acc: torch.Tensor,
                    gtu: torch.Tensor, tfin: torch.Tensor, lc: torch.Tensor):
     """Launch a list backward kernel (K4 or K6). g_acc [4,H,W] = d loss /
-    d acc, gtu [H,W] = (d loss / d tfin) * tfin. -> dpacked [N, 10] f32."""
-    _check_lists(packed, lists, geom)
+    d acc, gtu [H,W] = (d loss / d tfin) * tfin. -> dpacked [N, 10] f32,
+    the first ten columns of the 16-byte-aligned [N, GRAD_W] scratch the
+    kernel adds into (atomics: the sums vary in the last bits from run to
+    run)."""
     height, width = tfin.shape
+    _check_lists(packed, rect, lists, geom, height, width)
     _check(g_acc, "g_acc", torch.float32, (4, height, width))
     _check(gtu, "gtu", torch.float32, (height, width))
     _check(tfin, "tfin", torch.float32, (height, width))
     _check(lc, "lc", torch.int32, (height, width))
-    dpacked = torch.zeros((packed.shape[0], NCOL), device=packed.device)
+    scratch = torch.zeros((packed.shape[0], GRAD_W), device=packed.device)
+    if scratch.data_ptr() % 16:
+        raise ValueError("gradient scratch must be 16-byte aligned")
     with torch.cuda.device(packed.device):
-        kernel(packed.data_ptr(), lists.order.data_ptr(),
+        kernel(packed.data_ptr(), rect.data_ptr(), lists.order.data_ptr(),
                lists.seg_start.data_ptr(), lists.seg_count.data_ptr(),
                geom.n_seg, geom.n_cols, geom.seg_w, height, width,
-               g_acc.data_ptr(), gtu.data_ptr(), tfin.data_ptr(),
-               lc.data_ptr(), dpacked.data_ptr(), _stream())
-    return dpacked
+               LOG_ALPHA_EPS, g_acc.data_ptr(), gtu.data_ptr(),
+               tfin.data_ptr(), lc.data_ptr(), scratch.data_ptr(), _stream())
+    return grad_columns(scratch)
 
 
 class _CompositeListsCuda(torch.autograd.Function):
-    """packed [N,10] -> (acc [4,H,W], tfin [H,W]) over the lists; the
-    forward kernel, and the backward kernel in the backward pass."""
+    """packed [N,10] -> (acc [4,H,W], tfin [H,W]) over the lists: k1_rects
+    and the forward kernel, and the backward kernel in the backward pass."""
 
     @staticmethod
     def forward(ctx, packed, lists, geom, height, width, fwd_kernel,
                 bwd_kernel):
         packed = packed.contiguous()
-        acc, tfin, lc = lists_forward(fwd_kernel, packed, lists, geom,
+        rect = k1_rects(packed, height, width).rect
+        acc, tfin, lc = lists_forward(fwd_kernel, packed, rect, lists, geom,
                                       height, width)
-        ctx.save_for_backward(packed, tfin, lc)
+        ctx.save_for_backward(packed, rect, tfin, lc)
         ctx.lists, ctx.geom, ctx.bwd_kernel = lists, geom, bwd_kernel
         return acc, tfin
 
     @staticmethod
     def backward(ctx, g_acc, g_tfin):
-        packed, tfin, lc = ctx.saved_tensors
-        dpacked = lists_backward(ctx.bwd_kernel, packed, ctx.lists, ctx.geom,
-                                 g_acc.contiguous(),
+        packed, rect, tfin, lc = ctx.saved_tensors
+        dpacked = lists_backward(ctx.bwd_kernel, packed, rect, ctx.lists,
+                                 ctx.geom, g_acc.contiguous(),
                                  (g_tfin * tfin).contiguous(), tfin, lc)
         return (dpacked,) + (None,) * 6
+
+
+# ---- what the kernels cull by, plain ---------------------------------------
+
+
+def span_reached(rect: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                 span_cols: int) -> torch.Tensor:
+    """[M] bool: the int32 tile rectangles rect [M, 4] (splat_rects) reach
+    the CTA span of span_cols pixels at pixel origin (x0, y0) [M]; a span
+    lies in one row of 16-px tiles. Plain version of the test the list
+    kernels' scan makes before anything else of a splat is read
+    (csrc/rasterize_lists.cu::Span::reached_by)."""
+    tx_lo, ty = x0 // TILE, y0 // TILE
+    tx_hi = tx_lo + span_cols // TILE - 1
+    return ((rect[:, 0] <= tx_hi) & (rect[:, 1] >= tx_lo)
+            & (rect[:, 2] <= ty) & (rect[:, 3] >= ty))
+
+
+def list_entries(lists: SlotLists, geom: ListGeometry):
+    """(segment [E], splat [E]) int64 of every list entry kept, in list
+    order."""
+    cnt = lists.seg_count.long()
+    dev = cnt.device
+    seg = torch.repeat_interleave(torch.arange(geom.n_seg, device=dev), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    pos = lists.seg_start.long()[seg] + \
+        torch.arange(len(seg), device=dev) - first[seg]
+    return seg, lists.order[pos].long()
+
+
+class ListCounts(NamedTuple):
+    """What one launch of a list kernel tests and evaluates (list_counts)."""
+
+    entries: int  # list entries kept
+    tests: int  # rectangle tests: one per (entry, CTA of its segment)
+    queued: int  # (entry, CTA) pairs that pass it: rows fetched
+    pairs_before: int  # entries x segment pixels: every pixel, every entry
+    pairs_after: int  # 32 per (queued entry, 8x4 block its mask marks)
+
+
+def list_counts(packed: torch.Tensor, lists: SlotLists, geom: ListGeometry,
+                cta_cols: int, height: int, width: int) -> ListCounts:
+    """Counts of a list kernel's work on these lists, with seg_w // cta_cols
+    CTAs a segment (those wholly beyond the image leave at once and are
+    not counted). The latched stop, which ends a pixel's walk early, is not
+    counted, nor K4/K6's start past the largest last contributor."""
+    seg, j = list_entries(lists, geom)
+    rect = splat_rects(packed, height, width)[j]
+    rows = packed[j]
+    y0 = seg // geom.n_cols * geom.seg_rows
+    tests = queued = marked = 0
+    for c in range(geom.seg_w // cta_cols):
+        x0 = seg % geom.n_cols * geom.seg_w + c * cta_cols
+        live = (x0 < width) & (y0 < height)
+        hit = live & span_reached(rect, x0, y0, cta_cols)
+        masks = span_block_masks(rows[hit], x0[hit], y0[hit], geom.seg_rows,
+                                 cta_cols)
+        n_blocks = geom.seg_rows // BLOCK_H * (cta_cols // BLOCK_W)
+        tests += int(live.sum())
+        queued += int(hit.sum())
+        marked += sum(int(((masks >> b) & 1).sum()) for b in range(n_blocks))
+    return ListCounts(len(seg), tests, queued,
+                      len(seg) * geom.seg_rows * geom.seg_w,
+                      marked * BLOCK_W * BLOCK_H)
 
 
 # ---- plain version -------------------------------------------------------

@@ -19,7 +19,8 @@ K2 — or raises. There is no fallback from one to the other.
 What the kernels cull by has a plain version here, which the card compares
 with the kernels and the CPU tests hold to "never drops a contributor":
 `scan_plain` (k1_rects: `splat_rects` packed to int16, `group_tile_mask`)
-and `block_masks` (the per-warp cull inside K1/K2).
+and `block_masks` (the per-warp cull inside K1/K2; `span_block_masks` is
+the same test over any CTA's span, as the list kernels K3-K6 use it).
 """
 
 from __future__ import annotations
@@ -136,12 +137,15 @@ def splat_rects(packed: torch.Tensor, height: int, width: int):
     ], dim=1).contiguous()
 
 
-def block_masks(rows: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor):
-    """[M] int32: for packed rows [M, 10] queued at tiles (tx, ty) [M], the
-    8x4-pixel blocks of the tile (bit 2 * block row + block column, one
-    warp of K1/K2 each) in which the splat can reach alpha >= 1/255. A warp
-    skips the queued splats that miss its block. Plain version of
-    csrc/rasterize.cu::block_mask.
+def span_block_masks(rows: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                     span_rows: int, span_cols: int):
+    """[M] int32: for packed rows [M, 10] queued at a CTA whose span_rows x
+    span_cols pixels start at pixel (x0, y0) [M], the 8x4-pixel blocks of
+    the span (bit = block row * blocks per row + block column, one warp
+    each) in which the splat can reach alpha >= 1/255. A warp skips the
+    queued splats that miss its block. Plain version of
+    csrc/compositor.cuh::block_mask; the spans are 16 x 16 (K1/K2), 4 x 64
+    (K3/K4) and 8 x 32 (K5/K6), eight blocks each.
 
     Per pixel row, q = ca dx^2 + 2 cb dx dy + cc dy^2 is least over a
     block's x range at dx = -cb dy / ca clamped to the range; the block is
@@ -150,16 +154,24 @@ def block_masks(rows: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor):
     mx, my, ca, cb, cc, lo = (rows[:, c, None, None] for c in range(6))
     m2 = 2.0 * (lo - LOG_ALPHA_EPS)
     dev = rows.device
-    row = torch.arange(TILE, device=dev)
-    dy = (ty[:, None, None] * TILE + row[None, :, None]) - my  # [M, 16, 1]
-    x0 = (tx[:, None, None] * TILE + torch.arange(
-        0, TILE, BLOCK_W, device=dev)[None, None, :]) - mx  # [M, 1, 2]
-    dx = torch.minimum(torch.maximum(-cb / ca * dy, x0), x0 + (BLOCK_W - 1))
+    row = torch.arange(span_rows, device=dev)
+    dy = (y0[:, None, None] + row[None, :, None]) - my  # [M, rows, 1]
+    xr = (x0[:, None, None] + torch.arange(
+        0, span_cols, BLOCK_W, device=dev)[None, None, :]) - mx
+    dx = torch.minimum(torch.maximum(-cb / ca * dy, xr), xr + (BLOCK_W - 1))
     t1, t2, t3 = ca * dx * dx, 2.0 * cb * dx * dy, cc * dy * dy
     keep = t1 + t2 + t3 <= m2 + 1e-2 + 1e-5 * (t1 + t2.abs() + t3)
-    blocks = keep.view(-1, TILE // BLOCK_H, BLOCK_H, TILE // BLOCK_W).any(
-        2).reshape(-1, 8)  # bit = 2 * block row + block column
-    return (blocks.int() << torch.arange(8, device=dev)[None]).sum(1).int()
+    n_blocks = span_rows // BLOCK_H * (span_cols // BLOCK_W)
+    blocks = keep.view(-1, span_rows // BLOCK_H, BLOCK_H,
+                       span_cols // BLOCK_W).any(2).reshape(-1, n_blocks)
+    return (blocks.int() << torch.arange(n_blocks, device=dev)[None]).sum(
+        1).int()
+
+
+def block_masks(rows: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor):
+    """[M] int32: `span_block_masks` of the 16x16 tiles (tx, ty) [M] that
+    K1/K2 composite (bit 2 * block row + block column)."""
+    return span_block_masks(rows, tx * TILE, ty * TILE, TILE, TILE)
 
 
 def pack_rects(rect: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,7 @@ STRIP_ROWS = 512  # the TPU strip height; bounds the sizing's per-strip max
 CAP_FACTOR = 3  # slot capacity = CAP_FACTOR * N + per-band alignment slack
 D_LEVELS = 16  # max row blocks a Gaussian may span (extent clamp, flagged)
 COL_ALIGN = 128  # bands span the width rounded up to this
+CTA_COLS = 64  # pixels per row of a CTA of K3/K4 (4 x 64 spans of a band)
 
 K3 = Kernel("k3_forward", FORWARD_ARGTYPES, "rasterize_lists.cu")
 K4 = Kernel("k4_backward", BACKWARD_ARGTYPES, "rasterize_lists.cu")

@@ -45,6 +45,7 @@ COL_W = 128
 CAP_FACTOR = 4  # slot capacity = CAP_FACTOR * N + per-tile alignment slack
 DY_LEVELS = 4  # max row-blocks a Gaussian may span (extent clamp, flagged)
 DX_LEVELS = 2  # max column-buckets a Gaussian may span
+CTA_COLS = 32  # pixels per row of a CTA of K5/K6 (8 x 32 spans of a tile)
 
 K5 = Kernel("k5_forward", FORWARD_ARGTYPES, "rasterize_lists.cu")
 K6 = Kernel("k6_backward", BACKWARD_ARGTYPES, "rasterize_lists.cu")

@@ -196,28 +196,42 @@ def _sized(kind, g, cam):
     return ":".join([f"pallas-{kind}", *map(str, caps)])
 
 
+def _lists(kind, packed, h, w, overflowing):
+    """(lists, geometry, forward kernel, backward kernel) for capacities
+    sized for these splats, or for a string that overflows."""
+    cols = (packed[:, :2], packed[:, 2:5], packed[:, 5],
+            RL.splat_valid(packed))
+    if kind == "binned":
+        caps = (1, 2) if overflowing else RB.bin_requirements(*cols, h, w)
+        out = (*RB.bin_lists(packed, h, w, *caps), RB.K3, RB.K4)
+    else:
+        caps = (1, 1, 1) if overflowing else RT.tile_requirements(*cols, h, w)
+        out = (*RT.tile_lists(packed, h, w, *caps), RT.K5, RT.K6)
+    assert bool(out[0].overflow) == overflowing
+    return out
+
+
 @pytest.mark.parametrize("overflowing", [False, True])
 @pytest.mark.parametrize("kind", ["binned", "tiled"])
-@pytest.mark.parametrize("n,hw", [(400, (48, 64)), (20_000, (187, 250))])
-def test_list_kernels_match_plain(cuda, n, hw, kind, overflowing):
+@pytest.mark.parametrize("n,hw,front", [(400, (48, 64), False),
+                                        (20_000, (187, 250), False),
+                                        (20_000, (48, 64), False),
+                                        (20_000, (187, 250), True)])
+def test_list_kernels_match_plain(cuda, n, hw, front, kind, overflowing):
     """K3/K4 or K5/K6 against the plain list walk on the same lists, at a
-    sized string and at an overflowing one (both drop the same pairs)."""
+    sized string and at an overflowing one (both drop the same pairs). 20k
+    splats at 64x48 make every list several scan passes long (incomplete
+    chunks wait from pass to pass); with `front`, opaque splats make every
+    pixel of the left spans stop early (the forward's block exit, the
+    backward's start past the span's largest last contributor)."""
     h, w = hw
-    g, cam = _scene(n, h, w, 0, cuda)
-    with torch.no_grad():
-        packed, _ = prepare_packed_splats(g, cam.pose, cam.fx, cam.fy, cam.cx,
-                                          cam.cy, 1.0, 2, h, w)
-    packed = packed.contiguous()
-    backend = ({"binned": "pallas-binned:1:2", "tiled": "pallas-tiled:1:1:1"}
-               [kind] if overflowing else _sized(kind, g, cam))
-    caps = [int(c) for c in backend.split(":")[1:]]
-    if kind == "binned":
-        (lists, geom), fwd, bwd = RB.bin_lists(packed, h, w, *caps), RB.K3, \
-            RB.K4
-    else:
-        (lists, geom), fwd, bwd = RT.tile_lists(packed, h, w, *caps), RT.K5, \
-            RT.K6
-    assert bool(lists.overflow) == overflowing
+    packed = _packed(n, h, w, cuda)
+    if front:
+        packed = _opaque_front(packed, h, w)
+    lists, geom, fwd, bwd = _lists(kind, packed, h, w, overflowing)
+    if (n, hw) == (20_000, (48, 64)) and not overflowing:
+        assert int(lists.seg_count.max()) > 2 * 1024  # scan passes
+    rect = RP.k1_rects(packed, h, w).rect
     rng = np.random.default_rng(1)
     g_acc = torch.as_tensor(rng.normal(size=(4, h, w)), dtype=torch.float32,
                             device=cuda)
@@ -228,15 +242,58 @@ def test_list_kernels_match_plain(cuda, n, hw, kind, overflowing):
     (grad_p,) = torch.autograd.grad((acc_p * g_acc).sum()
                                     + (tfin_p * g_t).sum(), [p])
     n1, n2 = fwd.launches, bwd.launches
-    acc, tfin, lc = RL.lists_forward(fwd, packed, lists, geom, h, w)
-    grad = RL.lists_backward(bwd, packed, lists, geom, g_acc,
+    acc, tfin, lc = RL.lists_forward(fwd, packed, rect, lists, geom, h, w)
+    grad = RL.lists_backward(bwd, packed, rect, lists, geom, g_acc,
                              (g_t * tfin).contiguous(), tfin, lc)
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (n1 + 1, n2 + 1)
+    assert grad.shape == (packed.shape[0], RL.NCOL)
+    if front and not overflowing:
+        assert float((tfin[:, :w * 2 // 5] < 2e-4).float().mean()) > 0.5
     assert float((acc - acc_p.detach()).abs().max()) <= 5e-4
     assert float((tfin - tfin_p.detach()).abs().max()) <= 5e-4
     assert float((lc.long() == lc_p).float().mean()) >= 0.999
     assert float((grad - grad_p).norm() / grad_p.norm()) <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["binned", "tiled"])
+def test_list_forward_is_the_same_every_launch(cuda, kind):
+    """The forward kernels add nothing atomically: thirty launches on lists
+    several scan passes long give bit-equal images, transmittances and last
+    contributors (a race between a CTA's warps over the queue, the chunk or
+    the per-warp lists would show here)."""
+    h, w = 48, 64
+    packed = _packed(20_000, h, w, cuda)
+    lists, geom, fwd, _ = _lists(kind, packed, h, w, False)
+    rect = RP.k1_rects(packed, h, w).rect
+    first = RL.lists_forward(fwd, packed, rect, lists, geom, h, w)
+    for _ in range(30):
+        again = RL.lists_forward(fwd, packed, rect, lists, geom, h, w)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["binned", "tiled"])
+def test_list_kernels_take_plain_rectangles(cuda, kind):
+    """The rectangles the list kernels' scan culls by are k1_rects'; handed
+    the plain version's (scan_plain) instead, the kernels composite the
+    same image and the same last contributors."""
+    h, w = 187, 250
+    packed = _packed(20_000, h, w, cuda)
+    lists, geom, fwd, _ = _lists(kind, packed, h, w, False)
+    plain = RP.scan_plain(packed, h, w).rect
+    kernel = RP.k1_rects(packed, h, w).rect
+    out_p = RL.lists_forward(fwd, packed, plain, lists, geom, h, w)
+    out_k = RL.lists_forward(fwd, packed, kernel, lists, geom, h, w)
+    torch.cuda.synchronize()
+    for a, b in zip(out_p, out_k):
+        assert torch.equal(a, b)
+    # and what the scan lets through covers every pair the plain walk
+    # finds: the image is the plain version's
+    with torch.no_grad():
+        acc_p, _, lc_p = RL.composite_lists_plain(packed, lists, geom, h, w)
+    assert float((out_k[0] - acc_p).abs().max()) <= 5e-4
+    assert float((out_k[2].long() == lc_p).float().mean()) >= 0.999
 
 
 @pytest.mark.parametrize("kind", ["binned", "tiled"])
@@ -256,7 +313,11 @@ def test_capacity_render_on_card_matches_oracle(cuda, kind):
                                atol=1e-6)
 
 
-def test_train_step_launches_tiled_kernels(cuda):
+@pytest.mark.parametrize("kind", ["tiled", "binned"])
+def test_train_step_launches_tiled_kernels(cuda, kind):
+    """One training step with a capacity string launches the rectangle
+    pass, the backend's forward and its backward kernel once each, and no
+    other compositor."""
     from instantsplat_tpu_torch.opt.gaussian_opt import (
         GaussianOptimizer, OptimizationConfig)
     from instantsplat_tpu_torch.pipelines.trainer import train_step
@@ -265,8 +326,12 @@ def test_train_step_launches_tiled_kernels(cuda):
     opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
                                                optim_pose=True))
     state = opt.init(g)
-    n5, n6 = RT.K5.launches, RT.K6.launches
+    kernels = {"KR": RP.KR, "K1": RP.K1, "K2": RP.K2, "K3": RB.K3,
+               "K4": RB.K4, "K5": RT.K5, "K6": RT.K6}
+    mine = {"tiled": ("KR", "K5", "K6"), "binned": ("KR", "K3", "K4")}[kind]
+    before = {name: k.launches for name, k in kernels.items()}
     m = train_step(g, cam, opt, state, 1, 0, torch.zeros(3, device=cuda),
-                   0.2, _sized("tiled", g, cam), 256)
-    assert (RT.K5.launches, RT.K6.launches) == (n5 + 1, n6 + 1)
+                   0.2, _sized(kind, g, cam), 256)
+    assert {name: k.launches - before[name] for name, k in kernels.items()
+            } == {name: int(name in mine) for name in kernels}
     assert np.isfinite(float(m["loss"]))

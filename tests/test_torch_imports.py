@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of instantsplat_tpu_torch, nor
-chip_smoke.py, imports JAX, Flax, Optax or the JAX package."""
+chip_smoke.py, nor a script that measures the port (scripts/torch_*.py),
+imports JAX, Flax, Optax or the JAX package."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "instantsplat_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "instantsplat_tpu")
 
 
