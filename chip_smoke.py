@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stage 2 on one NVIDIA card and check it.
+"""Drive the PyTorch + CUDA port's stages 2, 3 and 5 on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -27,8 +28,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    every tile's queue overflows its capacity several times and every
    segment's list is several scan passes long, and opaque splats in front,
    so that whole tiles and spans hit the stop.
-4. Train: a synthetic 3-view sparse_3 scene (COLMAP text, points3D.ply,
-   PNG images; 100k points, 512x384) through
+4. Train: a synthetic sparse_3 scene (COLMAP text, points3D.ply, PNG
+   images; 100k points, three 512x384 train views of 15 frames; the test
+   split and the ground truth are for phase 6) through
    instantsplat_tpu_torch.cli.train.main for 200 iterations with
    --pp_optimizer --optim_pose --sh_degree 3, four times:
    --backend pallas (KR, K1 and K2 launch once per iteration), --backend auto
@@ -59,6 +61,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    list) and after (the 8x4 blocks a fetched entry's block mask marks), and
    the first design's times beside the new ones. Then 10 iterations of the
    dense, the binned and the tiled path under torch.profiler.
+6. Stages 3 and 5 on the model of phase 4's first dense run, through
+   instantsplat_tpu_torch.cli.render.main and cli.metrics.main: the train
+   views; N_TEST_VIEWS test views, each refined from a start 2 degrees and
+   0.1 off its true pose by 500 Adam steps through KR, K1 and K2 with the
+   Gaussians frozen (each view's best loss must fall below its start loss
+   and its pose come nearer the truth), then rendered; the FPS benchmark;
+   the interpolated path with --backend auto; results.json (finite PSNR,
+   SSIM and ATE, LPIPS null). Launch counts of KR, K1 and K2 must equal
+   the renders and refinement steps. 20 refinement steps under
+   torch.profiler (the card's busy share of a step). Then the refiner on
+   the card against the CPU (10 steps on a small view, pose within 1e-5)
+   and LPIPS with random weights on a 512x384 pair, card against CPU
+   (relative 1e-4: full float32, no TF32). Prints ms per refinement
+   iteration, seconds per view, FPS, ms per interpolated frame and the
+   metrics stage's seconds beside the card's name and power limit.
 
 The last lines are one JSON object {"kernels": [...]} with seven entries,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -100,6 +117,23 @@ SOURCES = ("rasterize.cu", "rasterize_lists.cu")
 LOSS_RTOL = 0.1
 # Deliberately overflowing capacity strings for the kernel checks
 OVERFLOW = {"binned": "pallas-binned:1:2", "tiled": "pallas-tiled:1:1:1"}
+# The dataset of phases 4 and 6: 15 frames along an arc, in name order.
+# split_train_test(15 names, 3 views) makes frames 0, 12 and 14 the train
+# views (at -0.15, 0 and 0.15 rad, which phase 4 trains on) and the other
+# twelve test views; N_TEST_VIEWS of them, spread evenly, are in sparse_3/1
+FRAME_ANGLES = tuple([-0.15 + 0.15 * k / 12 for k in range(12)]
+                     + [0.0, 0.075, 0.15])
+TRAIN_FRAMES = (0, 12, 14)
+N_TEST_VIEWS = 12
+REFINE_ITERS = 500  # the reference's test-time pose refinement
+FPS_RENDERS = 1000  # renders of the --test_fps benchmark (plus a warm one)
+# start poses of the test views: turned 2 degrees about a random axis and
+# moved 0.1 (the cameras stand 4 from the surface) in a random direction
+PERTURB_RAD = math.radians(2.0)
+PERTURB_T = 0.1
+# relative difference of LPIPS on the card and on the CPU (TF32 would give
+# ~1e-3)
+LPIPS_RTOL = 1e-4
 # CUDA-event ms of the list kernels' first design (every pixel of a CTA
 # walked its segment's whole list; scalar atomics in the backward) at the
 # training shape on an NVIDIA H100 80GB HBM3 at 700 W, printed beside this
@@ -184,9 +218,49 @@ def texture(x, y):
     return np.clip(c * (0.75 + 0.25 * checker), 0.0, 1.0)
 
 
+def ray_cast(w2c, fx):
+    """[H, W, 3] image of the textured relief surface seen by `w2c`."""
+    import numpy as np
+
+    gy, gx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    c2w = np.linalg.inv(w2c)
+    d = np.stack([(gx - (W - 1) / 2) / fx, (gy - (H - 1) / 2) / fx,
+                  np.ones_like(gx, np.float64)], -1) @ c2w[:3, :3].T
+    o = c2w[:3, 3]
+    t = -o[2] / d[..., 2]  # plane z = 0, then fixed-point refinement
+    for _ in range(8):
+        p = o + t[..., None] * d
+        t = (surface(p[..., 0], p[..., 1]) - o[2]) / d[..., 2]
+    p = o + t[..., None] * d
+    return texture(p[..., 0], p[..., 1])
+
+
+def perturbed(w2c, rng):
+    """`w2c` turned by PERTURB_RAD about a random axis and moved by
+    PERTURB_T in a random direction."""
+    import numpy as np
+
+    from instantsplat_tpu_torch.utils import transforms as T
+
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    half = PERTURB_RAD / 2
+    turn = T.qvec_to_rotmat(np.concatenate([[np.cos(half)],
+                                            np.sin(half) * axis]))
+    shift = rng.normal(size=3)
+    out = np.array(w2c, np.float64)
+    out[:3, :3] = turn @ out[:3, :3]
+    out[:3, 3] = turn @ out[:3, 3] + PERTURB_T * shift / np.linalg.norm(
+        shift)
+    return out
+
+
 def write_scene(root: Path, seed: int = 0):
-    """3-view sparse_3 scene: a textured relief surface, its colored point
-    cloud and PNG renders of the surface texture."""
+    """sparse_3 scene of a textured relief surface: its colored point cloud
+    (sparse_3/0/points3D.ply), 15 PNG frames along an arc ray-cast from the
+    surface, the three train views (sparse_3/0), N_TEST_VIEWS test views
+    whose start poses are perturbed from the truth (sparse_3/1), and the
+    dataset's ground truth of all 15 frames (sparse/0)."""
     import numpy as np
 
     from instantsplat_tpu_torch.data import colmap, png, ply
@@ -196,34 +270,36 @@ def write_scene(root: Path, seed: int = 0):
     xy = rng.uniform([-3.0, -2.2], [3.0, 2.2], size=(N_POINTS, 2))
     pts = np.concatenate([xy, surface(xy[:, 0], xy[:, 1])[:, None]], 1)
     cols = texture(xy[:, 0], xy[:, 1])
-    sparse = root / "sparse_3" / "0"
-    sparse.mkdir(parents=True)
+    for sub in ("sparse_3/0", "sparse_3/1", "sparse/0"):
+        (root / sub).mkdir(parents=True)
     (root / "images").mkdir()
-    ply.store_point_cloud(sparse / "points3D.ply", pts, cols * 255.0)
-    cams, ims = {}, {}
-    gy, gx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-    for i, ang in enumerate((-0.15, 0.0, 0.15)):
+    ply.store_point_cloud(root / "sparse_3/0/points3D.ply", pts,
+                          cols * 255.0)
+    test_frames = [k for k in range(len(FRAME_ANGLES))
+                   if k not in TRAIN_FRAMES]
+    test_frames = [test_frames[i] for i in np.linspace(
+        0, len(test_frames) - 1, N_TEST_VIEWS).round().astype(int)]
+    splits = {"sparse_3/0": ({}, {}), "sparse_3/1": ({}, {}),
+              "sparse/0": ({}, {})}
+    jitter = np.random.default_rng(seed + 1)
+    for k, ang in enumerate(FRAME_ANGLES):
         w2c = look_at_w2c((4.0 * np.sin(ang), 0.3, -4.0 * np.cos(ang)))
-        c2w = np.linalg.inv(w2c)
-        d = np.stack([(gx - (W - 1) / 2) / fx, (gy - (H - 1) / 2) / fx,
-                      np.ones_like(gx, np.float64)], -1) @ c2w[:3, :3].T
-        o = c2w[:3, 3]
-        t = -o[2] / d[..., 2]  # plane z = 0, then fixed-point refinement
-        for _ in range(8):
-            p = o + t[..., None] * d
-            t = (surface(p[..., 0], p[..., 1]) - o[2]) / d[..., 2]
-        p = o + t[..., None] * d
-        img = texture(p[..., 0], p[..., 1])
-        name = f"{i:03d}.png"
-        png.write_png(root / "images" / name,
-                      np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8))
-        cams[i + 1] = colmap.ColmapCamera(
-            i + 1, "PINHOLE", W, H, np.array([fx, fx, W / 2, H / 2]))
-        ims[i + 1] = colmap.ColmapImage(
-            i + 1, colmap.rotmat_to_qvec(w2c[:3, :3]), w2c[:3, 3], i + 1,
-            name)
-    colmap.write_cameras_text(cams, sparse / "cameras.txt")
-    colmap.write_images_text(ims, sparse / "images.txt")
+        name = f"{k:03d}.png"
+        png.write_png(root / "images" / name, np.clip(
+            ray_cast(w2c, fx) * 255.0 + 0.5, 0, 255).astype(np.uint8))
+        subs = ["sparse/0"] + (["sparse_3/0"] if k in TRAIN_FRAMES else
+                               ["sparse_3/1"] if k in test_frames else [])
+        for sub in subs:
+            pose = perturbed(w2c, jitter) if sub == "sparse_3/1" else w2c
+            cams, ims = splits[sub]
+            i = len(cams) + 1
+            cams[i] = colmap.ColmapCamera(i, "PINHOLE", W, H,
+                                          np.array([fx, fx, W / 2, H / 2]))
+            ims[i] = colmap.ColmapImage(
+                i, colmap.rotmat_to_qvec(pose[:3, :3]), pose[:3, 3], i, name)
+    for sub, (cams, ims) in splits.items():
+        colmap.write_cameras_text(cams, root / sub / "cameras.txt")
+        colmap.write_images_text(ims, root / sub / "images.txt")
 
 
 # --------------------------------------------------------------------------
@@ -493,40 +569,19 @@ def contributing_pairs(packed, height, width, chunk=256) -> int:
     return total
 
 
-def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
-                       iters: int = 10):
-    """Device time per training iteration by kernel name (torch.profiler
-    over `iters` steady steps of the training step on one view with
-    `backend`), and the share of the window's wall time the card was
-    busy."""
+def profile_window(tag, backend, run, iters: int, top: int):
+    """torch.profiler over run(), which takes `iters` steps and ends
+    synchronised: device time per step by kernel name, and the share of
+    the window's wall time the card was busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from instantsplat_tpu_torch.opt.gaussian_opt import (
-        GaussianOptimizer, OptimizationConfig)
-    from instantsplat_tpu_torch.pipelines.trainer import train_step
-    from instantsplat_tpu_torch.render import driver
-
-    driver._guard = driver._OverflowGuard()  # nothing checked or demoted
-    opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
-                                               optim_pose=True),
-                            total_iterations=TRAIN_ITERS)
-    state = opt.init(params)
-    bg = torch.zeros(3, device=dev)
-
-    def step(i):
-        float(train_step(params, cam, opt, state, i, 0, bg, 0.2, backend,
-                         256)["loss"])  # per-iteration loss read, as trained
-
-    for i in range(3):
-        step(i + 1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for i in range(iters):
-            step(i + 4)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     by_name: dict[str, float] = {}
@@ -546,6 +601,34 @@ def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"profile {tag}: {ms / iters:8.3f} ms/iter "
             f"{100 * ms / busy_ms:5.1f}% {name[:110]}")
+
+
+def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
+                       iters: int = 10):
+    """profile_window over `iters` steady steps of the training step on
+    one view with `backend`."""
+    import torch
+
+    from instantsplat_tpu_torch.opt.gaussian_opt import (
+        GaussianOptimizer, OptimizationConfig)
+    from instantsplat_tpu_torch.pipelines.trainer import train_step
+    from instantsplat_tpu_torch.render import driver
+
+    driver._guard = driver._OverflowGuard()  # nothing checked or demoted
+    opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
+                                               optim_pose=True),
+                            total_iterations=TRAIN_ITERS)
+    state = opt.init(params)
+    bg = torch.zeros(3, device=dev)
+
+    def step(i):
+        float(train_step(params, cam, opt, state, i, 0, bg, 0.2, backend,
+                         256)["loss"])  # per-iteration loss read, as trained
+
+    for i in range(3):
+        step(i + 1)
+    profile_window(tag, backend, lambda: [step(i + 4) for i in range(iters)],
+                   iters, top)
 
 
 def kernel_table():
@@ -581,43 +664,51 @@ class _Warnings(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def train_run(scene: Path, out: Path, backend: str, log_every: int):
-    """One 200-iteration training run through the CLI. -> (params,
-    history, launches {KR, K1..K6}, seconds, the trainer's "backend auto"
-    lines, the overflow guard's demotion warnings)."""
+def run_cli(main, argv):
+    """Run a CLI main with the launch counts set to 0 just before and read
+    just after, each run with no capacity signature checked or demoted.
+    -> (what main returned, its stdout, seconds, launches {KR, K1..K6},
+    the overflow guard's demotion warnings)."""
     import contextlib
 
     import torch
 
-    from instantsplat_tpu_torch.cli import train as train_cli
     from instantsplat_tpu_torch.render import driver
 
-    # each run starts with no capacity signature checked or demoted
     driver._guard = driver._OverflowGuard()
     kernels = kernel_table()
-    for k in kernels.values():
-        k.launches = 0
-    tee = _Tee(sys.stdout)
     warns = _Warnings()
     guard_log = logging.getLogger("instantsplat_tpu_torch.render.driver")
     guard_log.addHandler(warns)
-    torch.cuda.synchronize()
-    t0 = time.time()
+    tee = _Tee(sys.stdout)
     try:
-        with contextlib.redirect_stdout(tee):
-            params, history = train_cli.main([
-                "-s", str(scene), "-m", str(out), "--n_views", "3",
-                "--iterations", str(TRAIN_ITERS), "--pp_optimizer",
-                "--optim_pose", "--sh_degree", "3", "--log_every",
-                str(log_every), "--backend", backend, "--quiet"])
+        for k in kernels.values():
+            k.launches = 0
         torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            result = main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
     finally:
         guard_log.removeHandler(warns)
-    seconds = time.time() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    auto_lines = [ln for ln in "".join(tee.text).splitlines()
-                  if "backend auto" in ln]
-    return params, history, launches, seconds, auto_lines, warns.messages
+    return result, "".join(tee.text), seconds, launches, warns.messages
+
+
+def train_run(scene: Path, out: Path, backend: str, log_every: int):
+    """One 200-iteration training run through the CLI. -> (params,
+    history, launches {KR, K1..K6}, seconds, the trainer's "backend auto"
+    lines, the overflow guard's demotion warnings)."""
+    from instantsplat_tpu_torch.cli import train as train_cli
+
+    (params, history), text, seconds, launches, demotions = run_cli(
+        train_cli.main, [
+            "-s", scene, "-m", out, "--n_views", 3, "--iterations",
+            TRAIN_ITERS, "--pp_optimizer", "--optim_pose", "--sh_degree", 3,
+            "--log_every", log_every, "--backend", backend, "--quiet"])
+    auto_lines = [ln for ln in text.splitlines() if "backend auto" in ln]
+    return params, history, launches, seconds, auto_lines, demotions
 
 
 def check_run(tag, history, launches, seconds, demotions, log_every,
@@ -679,6 +770,368 @@ def view_requirements(params, cameras):
     t = [driver.tiled_view_requirements(params, params.get_pose(c.uid), c)
          for c in cameras]
     return tuple(map(max, zip(*b))), tuple(map(max, zip(*t)))
+
+
+def training_shape(params, cam, dev, path_launches):
+    """Phase 5: each kernel against the plain version at the training
+    shape, its times and bound, then the profiled iterations. -> the
+    kernels' JSON rows."""
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.render.driver import prepare_packed_splats
+
+    with torch.no_grad():
+        packed, _ = prepare_packed_splats(
+            params, params.get_pose(0), cam.fx, cam.fy, cam.cx, cam.cy, 1.0,
+            params.max_sh_degree, H, W)
+    packed = packed.contiguous()
+    errs = compare_all("training shape", packed, H, W, seed=3,
+                       elementwise=False)
+    pairs = contributing_pairs(packed, H, W)
+    n = packed.shape[0]
+    sized = sized_backends(packed, H, W)
+    rng = np.random.default_rng(4)
+    g_acc = torch.as_tensor(rng.normal(size=(4, H, W)), dtype=torch.float32,
+                            device=dev)
+    g_tfin = torch.as_tensor(rng.normal(size=(H, W)), dtype=torch.float32,
+                             device=dev)
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+    # the dense pair's scan: what the coarse mask and the row spans save
+    from instantsplat_tpu_torch.ops import rasterize_lists as RL
+    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
+
+    scan = RP.k1_rects(packed, H, W)
+    n_tiles = -(-W // RP.TILE) * -(-H // RP.TILE)
+    tests, covered, evaluated = RP.scan_counts(packed, scan, H, W)
+    log(f"training shape dense scan: rectangle tests per launch "
+        f"{n_tiles * n} (tiles x N) -> {tests} (32 per marked (group, "
+        f"tile)); {covered} queue entries (covered (splat, tile) pairs) = "
+        f"{covered / n_tiles:.1f} splats a tile; evaluated (pixel, splat) "
+        f"pairs {covered * RP.TILE ** 2} (every pixel of a covered tile) "
+        f"-> {evaluated} (the 8x4 blocks the block masks mark) for {pairs} "
+        f"contributing = {evaluated / pairs:.2f}x")
+    kr_ms = graph_ms(lambda: RP.k1_rects(packed, H, W), 20)
+    kr_events_ms = cuda_ms(lambda: RP.k1_rects(packed, H, W), 20)
+    rects_plain_ms = cuda_ms(lambda: RP.splat_rects(packed, H, W), 20)
+    scan_plain_ms = cuda_ms(lambda: RP.scan_plain(packed, H, W), 3, 1)
+    kr_bytes = 24 * n + 8 * n + 4 * scan.mask.numel()
+    kr_bound, kr_by = bound(kr_bytes, n * KR_OPS_PER_SPLAT)
+    log(f"training shape KR: {kr_ms:.4f} ms in a CUDA-graph replay, "
+        f"{kr_events_ms:.4f} ms by CUDA events around eager launches (host "
+        f"launch cost included); plain splat_rects on the card "
+        f"{rects_plain_ms:.4f} ms, plain rectangles + coarse mask "
+        f"{scan_plain_ms:.2f} ms; bound {kr_bound:.5f} ms by {kr_by}")
+    rows = [dict(
+        name="KR dense rectangles", route="cuda",
+        source="instantsplat_tpu_torch/csrc/rasterize.cu",
+        replaces="instantsplat_tpu/ops/rasterize_pallas.py:408",
+        launches=path_launches["KR"], max_abs_err=errs["rects"][0],
+        ms=kr_ms, plain_ms=scan_plain_ms, bound_ms=kr_bound, bound_by=kr_by,
+        library_ms=None)]
+    sources = {"dense": ("rasterize.cu", "rasterize_pallas.py", 145, 265),
+               "binned": ("rasterize_lists.cu", "rasterize_pallas_binned.py",
+                          202, 270),
+               "tiled": ("rasterize_lists.cu", "rasterize_pallas_tiled.py",
+                         218, 291)}
+    for kind in ("dense", "binned", "tiled"):
+        backend = "pallas" if kind == "dense" else sized[kind]
+        (kf, kb), plain, k_fwd, k_bwd, listed = backend_paths(
+            backend, packed, H, W)
+        acc_k, tfin_k, lc_k = k_fwd()
+        gtu = (g_tfin * tfin_k).contiguous()
+        # device time: 20 launches replayed from a CUDA graph (events
+        # around eager launches read the host's pace when the host is
+        # slower than the kernel; they are logged beside)
+        f_ms = graph_ms(k_fwd, 20)
+        b_ms = graph_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
+        f_events_ms = cuda_ms(k_fwd, 20)
+        b_events_ms = cuda_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
+        with torch.no_grad():
+            plain_f_ms = cuda_ms(lambda: plain(packed), 1, 1)
+        pg = packed.clone().requires_grad_(True)
+        acc_p, tfin_p, _ = plain(pg)
+        obj = (acc_p * g_acc).sum() + (tfin_p * g_tfin).sum()
+        plain_b_ms = cuda_ms(
+            lambda: torch.autograd.grad(obj, [pg], retain_graph=True), 1, 0)
+        del pg, acc_p, tfin_p, obj
+        if listed is None:
+            scan_bytes = 8 * n + 4 * scan.mask.numel()
+            f_bytes = 40 * n + scan_bytes + 24 * H * W
+            b_bytes = 80 * n + scan_bytes + 28 * H * W
+            note = ""
+        else:
+            lists, geom, cta_cols = listed
+            counts = RL.list_counts(packed, lists, geom, cta_cols, H, W)
+            tables = 8 * lists.seg_count.shape[0]
+            # the rectangles (8 B a splat) are read too since the redesign
+            f_bytes = 48 * n + 4 * counts.entries + tables + 24 * H * W
+            b_bytes = 88 * n + 4 * counts.entries + tables + 28 * H * W
+            note = f" [{backend}, {counts.entries} list entries]"
+            log(f"training shape {kind} lists: {counts.entries} list "
+                f"entries = {counts.entries / n:.2f} a splat, "
+                f"{counts.entries / geom.n_seg:.0f} a segment (longest "
+                f"{int(lists.seg_count.max())}); rectangle tests per launch "
+                f"{counts.tests} (one per entry and {geom.seg_rows}x"
+                f"{cta_cols} CTA of its segment), rows fetched "
+                f"{counts.queued}; evaluated (pixel, entry) pairs "
+                f"{counts.pairs_before} (every pixel of a segment walks its "
+                f"whole list) = {counts.pairs_before / pairs:.2f}x the "
+                f"{pairs} contributing -> {counts.pairs_after} (the 8x4 "
+                f"blocks the block masks mark) = "
+                f"{counts.pairs_after / pairs:.2f}x")
+            log(f"training shape {kind}: first design {kf} "
+                f"{FIRST_DESIGN_MS[kf]:.4f} ms, {kb} "
+                f"{FIRST_DESIGN_MS[kb]:.4f} ms (NVIDIA H100 80GB HBM3, 700 "
+                f"W, by CUDA events) -> this run {kf} {f_events_ms:.4f} ms "
+                f"by events = {FIRST_DESIGN_MS[kf] / f_events_ms:.2f}x, "
+                f"{kb} {b_events_ms:.4f} ms = "
+                f"{FIRST_DESIGN_MS[kb] / b_events_ms:.2f}x")
+        bf, byf = bound(f_bytes, pairs * K1_OPS_PER_PAIR)
+        bb, byb = bound(b_bytes, pairs * K2_OPS_PER_PAIR)
+        log(f"training shape {kind}{note}: {pairs} contributing (pixel, "
+            f"splat) pairs; {kf} {f_ms:.4f} ms in a CUDA-graph replay, "
+            f"{f_events_ms:.4f} ms by CUDA events around eager launches "
+            f"(plain fwd {plain_f_ms:.2f} ms, bound {bf:.5f} ms by {byf}); "
+            f"{kb} {b_ms:.4f} ms in a replay, {b_events_ms:.4f} ms by "
+            f"events (plain bwd {plain_b_ms:.2f} ms, bound {bb:.5f} ms by "
+            f"{byb})")
+        cu, mod, fl, bl = sources[kind]
+        e_f, e_b = errs[kind]
+        for name, line, ms, pms, bms, by, err, what in (
+                (kf, fl, f_ms, plain_f_ms, bf, byf, e_f, "forward"),
+                (kb, bl, b_ms, plain_b_ms, bb, byb, e_b, "backward")):
+            rows.append(dict(
+                name=f"{name} {kind} {what}", route="cuda",
+                source=f"instantsplat_tpu_torch/csrc/{cu}",
+                replaces=f"instantsplat_tpu/ops/{mod}:{line}",
+                launches=path_launches[name], max_abs_err=err, ms=ms,
+                plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
+    profile_iterations("dense", params, cam, dev)
+    # the capacity paths, sized for the scene as it now stands (the
+    # profiled steps go on training it)
+    for kind, backend in sized_backends(packed, H, W, (1, 2, 1)).items():
+        forward = kernel_table()[{"binned": "K3", "tiled": "K5"}[kind]]
+        before = forward.launches
+        profile_iterations(kind, params, cam, dev, backend, top=5)
+        if forward.launches == before:
+            fail(f"profile {kind}: {backend} never launched {forward.name}")
+    return rows
+
+
+def pose_error(w2c, gt_c2w) -> float:
+    """How far a w2c pose is from the truth: the distance of its camera
+    centre plus the arc its view direction sweeps at the surface's
+    distance (4 x the rotation angle)."""
+    import numpy as np
+
+    c2w = np.linalg.inv(w2c)
+    cos = (np.trace(c2w[:3, :3].T @ gt_c2w[:3, :3]) - 1.0) / 2.0
+    return float(np.linalg.norm(c2w[:3, 3] - gt_c2w[:3, 3])
+                 + 4.0 * np.arccos(np.clip(cos, -1.0, 1.0)))
+
+
+def refine_case(device):
+    """A small refinement case: 500 seeded Gaussians, a 64x48 view whose
+    ground truth is the plain render at its own pose, and a start moved
+    from it. -> (gaussians, camera with its image, start pose7)."""
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.models.camera import Camera
+    from instantsplat_tpu_torch.models.gaussians import (PARAM_FIELDS,
+                                                         GaussianModel)
+    from instantsplat_tpu_torch.render.driver import render
+    from instantsplat_tpu_torch.utils import transforms as T
+
+    rng = np.random.default_rng(12)
+    n = 500
+    g = GaussianModel.create_from_pcd(
+        rng.normal(size=(n, 3)) * [1.0, 0.8, 0.3],
+        rng.uniform(0.05, 0.95, (n, 3)), cam_poses=np.zeros((1, 7)),
+        max_sh_degree=1, device="cpu")
+    g.scaling += torch.as_tensor(rng.normal(size=(n, 3)) * 0.3,
+                                 dtype=torch.float32)
+    g.opacity = torch.as_tensor(rng.normal(size=(n, 1)) + 1.0,
+                                dtype=torch.float32)
+    g.rotation = torch.as_tensor(rng.normal(size=(n, 4)), dtype=torch.float32)
+    M = look_at_w2c((0.5, 0.3, -4.0))
+    with torch.no_grad():
+        gt = render(g, Camera.create(M[:3, :3], M[:3, 3], fx=60.0, fy=60.0,
+                                     height=48, width=64, device="cpu"),
+                    backend="oracle").render.numpy()
+    g = type(g)(**{f: getattr(g, f).to(device) for f in PARAM_FIELDS},
+                max_sh_degree=1)
+    cam = Camera.create(M[:3, :3], M[:3, 3], fx=60.0, fy=60.0, height=48,
+                        width=64, image=gt, device=device)
+    return g, cam, T.matrix_to_pose_np(perturbed(M, rng))
+
+
+def stages_3_and_5(scene: Path, model: Path, dev, smi: str):
+    """Phase 6: the render stage with test-time pose refinement, the
+    interpolated path and the metrics stage, through their CLIs, on the
+    dense run's model; then the refiner and LPIPS on the card against the
+    CPU."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.cli import metrics as metrics_cli
+    from instantsplat_tpu_torch.cli import render as render_cli
+    from instantsplat_tpu_torch.data.images import load_image
+    from instantsplat_tpu_torch.data.scene import (read_colmap_gt_pose,
+                                                   read_scene)
+    from instantsplat_tpu_torch.eval.image_metrics import LpipsVGG, lpips
+    from instantsplat_tpu_torch.ops.losses import masked_l1_loss
+    from instantsplat_tpu_torch.pipelines.render_pipeline import (
+        make_pose_refiner)
+    from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
+    from instantsplat_tpu_torch.render.driver import render
+    from instantsplat_tpu_torch.utils import transforms as T
+
+    it = TRAIN_ITERS
+    test = read_scene(scene, 3, split="test", device=dev)
+    v = len(test.cameras)
+    gt_c2w = read_colmap_gt_pose(scene)
+    frames = [int(name[:3]) for name in test.image_names]
+    # the loss at each start pose: the first refinement step's
+    params, _ = load_trained(model, it, device=dev)
+    with torch.no_grad():
+        start_loss = []
+        for cam in test.cameras:
+            out = render(params, cam, backend="pallas")
+            start_loss.append(float(masked_l1_loss(out.render, cam.image,
+                                                   out.render > 0.0)))
+    del params
+
+    # ---- stage 3: train and test views, refinement, FPS ----
+    _, text, secs, launches, dem = run_cli(render_cli.main, [
+        "-s", scene, "-m", model, "--backend", "pallas", "--test_fps",
+        "--optim_test_pose_iter", REFINE_ITERS])
+    for msg in dem:
+        log(f"render: overflow guard: {msg}")
+    views = re.findall(
+        r"\[render\] pose refinement view (\d+)/\d+: (\d+) iterations in "
+        r"([\d.]+) s, best masked L1 (\S+), pose ([^\n]+)", text)
+    if len(views) != v:
+        fail(f"render: {len(views)} refinement lines for {v} test views")
+    view_s = []
+    for i, (_, n_it, sec, best, pose) in enumerate(views):
+        pose = np.array([float(x) for x in pose.split()])
+        gt = gt_c2w[frames[i]]
+        e0 = pose_error(test.poses_w2c[i], gt)
+        e1 = pose_error(T.pose_to_matrix_np(pose), gt)
+        view_s.append(float(sec))
+        log(f"render: test view {i + 1}/{v} (frame {frames[i]}): masked L1 "
+            f"{start_loss[i]:.6f} -> {float(best):.6f}, distance from the "
+            f"true pose {e0:.5f} -> {e1:.5f} ({n_it} iterations, "
+            f"{float(sec):.2f} s)")
+        if not float(best) < start_loss[i]:
+            fail(f"render: view {i + 1}: the best loss {best} is not below "
+                 f"the start loss {start_loss[i]:.6f}")
+        if not e1 < e0:
+            fail(f"render: view {i + 1}: the refined pose ({e1:.5f}) is not "
+                 f"nearer the truth than the start ({e0:.5f})")
+    fps = json.loads((model / "total_fps.json").read_text().splitlines()[-1])
+    out = model / "test" / f"ours_{it}"
+    counts = {rel: len(list((model / rel).glob("*.png"))) for rel in (
+        f"train/ours_{it}/renders", f"test/ours_{it}/renders",
+        f"test/ours_{it}/gt")}
+    if counts != {f"train/ours_{it}/renders": 3, f"test/ours_{it}/renders": v,
+                  f"test/ours_{it}/gt": v}:
+        fail(f"render: PNG counts {counts}")
+    fwd = 3 + v * REFINE_ITERS + v + FPS_RENDERS + 1
+    want = {"KR": fwd, "K1": fwd, "K2": v * REFINE_ITERS, "K3": 0, "K4": 0,
+            "K5": 0, "K6": 0}
+    log(f"render: launches {launches} (expected {want}: 3 train renders, "
+        f"{v} x {REFINE_ITERS} refinement steps, {v} test renders, "
+        f"{FPS_RENDERS + 1} FPS renders)")
+    if launches != want:
+        fail(f"render: kernel launches {launches} != {want}")
+    ms_iter = 1e3 * sum(view_s) / (v * REFINE_ITERS)
+    log(f"render [{smi}]: {secs:.1f} s for the stage ({v} test views); "
+        f"refinement {ms_iter:.2f} ms per iteration, "
+        f"{sum(view_s) / v:.2f} s per view ({min(view_s):.2f}-"
+        f"{max(view_s):.2f}); FPS {float(fps):.1f} (mean of the middle "
+        f"{FPS_RENDERS * 8 // 10} of {FPS_RENDERS} synchronised renders)")
+
+    # ---- stage 3 again: the interpolated path, auto's pick ----
+    _, text, secs, launches, dem = run_cli(render_cli.main, [
+        "-s", scene, "-m", model, "--infer_video", "--skip_train"])
+    for msg in dem:
+        log(f"render video: overflow guard: {msg}")
+    for line in text.splitlines():
+        if "skipped" in line or "unavailable" in line:
+            log(f"render video: {line.strip()}")
+    inter = np.load(model / "pose" / f"ours_{it}" / "pose_interpolated.npy")
+    n_frames = len(list((model / "interp" / f"ours_{it}" / "renders").glob(
+        "*.png")))
+    fwd = launches["K1"] + launches["K3"] + launches["K5"]
+    bwd = launches["K2"] + launches["K4"] + launches["K6"]
+    picked = ("dense" if launches["K1"] >= len(inter) else "tiled"
+              if launches["K5"] >= len(inter) else "binned")
+    log(f"render video [{smi}]: {n_frames} frames of a {len(inter)}-pose "
+        f"path in {secs:.1f} s = {secs / n_frames * 1e3:.1f} ms a frame "
+        f"(model load, auto's timed pick and PNG writes included); auto "
+        f"rendered with {picked}; launches {launches}")
+    if n_frames != len(inter) or len(inter) != 2 * (10 * 30 // 3) + 1:
+        fail(f"render video: {n_frames} frames for {len(inter)} poses")
+    # auto times one warm and one timed forward of dense and of the sized
+    # candidate (if any); every forward launches KR in front
+    if bwd or fwd - len(inter) not in (2, 4) or launches["KR"] != fwd:
+        fail(f"render video: launches {launches} for {len(inter)} frames")
+
+    # ---- stage 5 ----
+    _, _, secs, _, _ = run_cli(metrics_cli.main, [
+        "-m", model, "-s", scene, "--n_views", "3"])
+    res = json.loads((model / "results.json").read_text())[f"ours_{it}"]
+    log(f"metrics [{smi}]: {secs:.2f} s; results.json {res}")
+    if not all(math.isfinite(res[k]) for k in ("PSNR", "SSIM", "ATE",
+                                                "RPE_t", "RPE_r")):
+        fail(f"metrics: non-finite value in {res}")
+    if res["LPIPS"] is not None:
+        fail("metrics: LPIPS is not null without weights")
+
+    # ---- where a refinement step's time goes: 20 steps on view 1 ----
+    params, _ = load_trained(model, it, device=dev)
+    cam = test.cameras[0]
+    pose0 = T.matrix_to_pose_np(test.poses_w2c[:1])[0]
+    make_pose_refiner(params, cam, num_iter=3)(pose0, cam.image)  # warm
+    refine = make_pose_refiner(params, cam, num_iter=20)
+    profile_window("refine", "pallas", lambda: refine(pose0, cam.image), 20,
+                   top=8)
+    del params
+
+    # ---- the refiner and LPIPS on the card against the CPU ----
+    poses = {}
+    for where in (dev, torch.device("cpu")):
+        g, cam, pose0 = refine_case(where)
+        pose, loss = make_pose_refiner(g, cam, num_iter=10)(pose0, cam.image)
+        poses[where.type] = (pose.cpu().numpy(), float(loss))
+    d_pose = float(np.abs(poses["cuda"][0] - poses["cpu"][0]).max())
+    d_loss = abs(poses["cuda"][1] - poses["cpu"][1]) / poses["cpu"][1]
+    log(f"refiner, 10 steps at 64x48, card against the CPU: pose max |d| "
+        f"{d_pose:.3e} (limit 1e-5), best loss relative {d_loss:.3e} "
+        f"(limit 1e-5)")
+    if not (d_pose <= 1e-5 and d_loss <= 1e-5):
+        fail("refiner: the card's result differs from the CPU's")
+    x = load_image(out / "renders" / "00000.png")
+    y = load_image(out / "gt" / "00000.png")
+    vals = {}
+    for where in (dev, torch.device("cpu")):
+        vals[where.type] = float(lpips(torch.as_tensor(x, device=where),
+                                       torch.as_tensor(y, device=where),
+                                       LpipsVGG.random(0, device=where)))
+    rel = abs(vals["cuda"] - vals["cpu"]) / abs(vals["cpu"])
+    log(f"LPIPS random(0) on a {W}x{H} pair: card {vals['cuda']:.7f}, CPU "
+        f"{vals['cpu']:.7f}, relative {rel:.3e} (limit {LPIPS_RTOL:g})")
+    if not rel <= LPIPS_RTOL:
+        fail("LPIPS on the card differs from the CPU's (TF32?)")
 
 
 def main():
@@ -828,148 +1281,12 @@ def main():
         log("steady ms/iter by backend: " + ", ".join(
             f"{k} {v:.2f}" for k, v in steady.items()))
 
-    # ---- phase 5: the training shape, trained scene ----------------------
-    from instantsplat_tpu_torch.render.driver import prepare_packed_splats
+        # ---- phase 5: the training shape, trained scene ------------------
+        rows = training_shape(params, cam, dev, path_launches)
 
-    with torch.no_grad():
-        packed, _ = prepare_packed_splats(
-            params, params.get_pose(0), cam.fx, cam.fy, cam.cx, cam.cy, 1.0,
-            params.max_sh_degree, H, W)
-    packed = packed.contiguous()
-    errs = compare_all("training shape", packed, H, W, seed=3,
-                       elementwise=False)
-    pairs = contributing_pairs(packed, H, W)
-    n = packed.shape[0]
-    sized = sized_backends(packed, H, W)
-    rng = np.random.default_rng(4)
-    g_acc = torch.as_tensor(rng.normal(size=(4, H, W)), dtype=torch.float32,
-                            device=dev)
-    g_tfin = torch.as_tensor(rng.normal(size=(H, W)), dtype=torch.float32,
-                             device=dev)
+        # ---- phase 6: stages 3 and 5 on the dense run's model ------------
+        stages_3_and_5(scene, Path(tmp) / "dense", dev, smi)
 
-    def bound(nbytes, ops):
-        t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_F32_S
-        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-
-    # the dense pair's scan: what the coarse mask and the row spans save
-    from instantsplat_tpu_torch.ops import rasterize_lists as RL
-    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
-
-    scan = RP.k1_rects(packed, H, W)
-    n_tiles = -(-W // RP.TILE) * -(-H // RP.TILE)
-    tests, covered, evaluated = RP.scan_counts(packed, scan, H, W)
-    log(f"training shape dense scan: rectangle tests per launch "
-        f"{n_tiles * n} (tiles x N) -> {tests} (32 per marked (group, "
-        f"tile)); {covered} queue entries (covered (splat, tile) pairs) = "
-        f"{covered / n_tiles:.1f} splats a tile; evaluated (pixel, splat) "
-        f"pairs {covered * RP.TILE ** 2} (every pixel of a covered tile) "
-        f"-> {evaluated} (the 8x4 blocks the block masks mark) for {pairs} "
-        f"contributing = {evaluated / pairs:.2f}x")
-    kr_ms = graph_ms(lambda: RP.k1_rects(packed, H, W), 20)
-    kr_events_ms = cuda_ms(lambda: RP.k1_rects(packed, H, W), 20)
-    rects_plain_ms = cuda_ms(lambda: RP.splat_rects(packed, H, W), 20)
-    scan_plain_ms = cuda_ms(lambda: RP.scan_plain(packed, H, W), 3, 1)
-    kr_bytes = 24 * n + 8 * n + 4 * scan.mask.numel()
-    kr_bound, kr_by = bound(kr_bytes, n * KR_OPS_PER_SPLAT)
-    log(f"training shape KR: {kr_ms:.4f} ms in a CUDA-graph replay, "
-        f"{kr_events_ms:.4f} ms by CUDA events around eager launches (host "
-        f"launch cost included); plain splat_rects on the card "
-        f"{rects_plain_ms:.4f} ms, plain rectangles + coarse mask "
-        f"{scan_plain_ms:.2f} ms; bound {kr_bound:.5f} ms by {kr_by}")
-    rows = [dict(
-        name="KR dense rectangles", route="cuda",
-        source="instantsplat_tpu_torch/csrc/rasterize.cu",
-        replaces="instantsplat_tpu/ops/rasterize_pallas.py:408",
-        launches=path_launches["KR"], max_abs_err=errs["rects"][0],
-        ms=kr_ms, plain_ms=scan_plain_ms, bound_ms=kr_bound, bound_by=kr_by,
-        library_ms=None)]
-    sources = {"dense": ("rasterize.cu", "rasterize_pallas.py", 145, 265),
-               "binned": ("rasterize_lists.cu", "rasterize_pallas_binned.py",
-                          202, 270),
-               "tiled": ("rasterize_lists.cu", "rasterize_pallas_tiled.py",
-                         218, 291)}
-    for kind in ("dense", "binned", "tiled"):
-        backend = "pallas" if kind == "dense" else sized[kind]
-        (kf, kb), plain, k_fwd, k_bwd, listed = backend_paths(
-            backend, packed, H, W)
-        acc_k, tfin_k, lc_k = k_fwd()
-        gtu = (g_tfin * tfin_k).contiguous()
-        # device time: 20 launches replayed from a CUDA graph (events
-        # around eager launches read the host's pace when the host is
-        # slower than the kernel; they are logged beside)
-        f_ms = graph_ms(k_fwd, 20)
-        b_ms = graph_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
-        f_events_ms = cuda_ms(k_fwd, 20)
-        b_events_ms = cuda_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
-        with torch.no_grad():
-            plain_f_ms = cuda_ms(lambda: plain(packed), 1, 1)
-        pg = packed.clone().requires_grad_(True)
-        acc_p, tfin_p, _ = plain(pg)
-        obj = (acc_p * g_acc).sum() + (tfin_p * g_tfin).sum()
-        plain_b_ms = cuda_ms(
-            lambda: torch.autograd.grad(obj, [pg], retain_graph=True), 1, 0)
-        del pg, acc_p, tfin_p, obj
-        if listed is None:
-            scan_bytes = 8 * n + 4 * scan.mask.numel()
-            f_bytes = 40 * n + scan_bytes + 24 * H * W
-            b_bytes = 80 * n + scan_bytes + 28 * H * W
-            note = ""
-        else:
-            lists, geom, cta_cols = listed
-            counts = RL.list_counts(packed, lists, geom, cta_cols, H, W)
-            tables = 8 * lists.seg_count.shape[0]
-            # the rectangles (8 B a splat) are read too since the redesign
-            f_bytes = 48 * n + 4 * counts.entries + tables + 24 * H * W
-            b_bytes = 88 * n + 4 * counts.entries + tables + 28 * H * W
-            note = f" [{backend}, {counts.entries} list entries]"
-            log(f"training shape {kind} lists: {counts.entries} list "
-                f"entries = {counts.entries / n:.2f} a splat, "
-                f"{counts.entries / geom.n_seg:.0f} a segment (longest "
-                f"{int(lists.seg_count.max())}); rectangle tests per launch "
-                f"{counts.tests} (one per entry and {geom.seg_rows}x"
-                f"{cta_cols} CTA of its segment), rows fetched "
-                f"{counts.queued}; evaluated (pixel, entry) pairs "
-                f"{counts.pairs_before} (every pixel of a segment walks its "
-                f"whole list) = {counts.pairs_before / pairs:.2f}x the "
-                f"{pairs} contributing -> {counts.pairs_after} (the 8x4 "
-                f"blocks the block masks mark) = "
-                f"{counts.pairs_after / pairs:.2f}x")
-            log(f"training shape {kind}: first design {kf} "
-                f"{FIRST_DESIGN_MS[kf]:.4f} ms, {kb} "
-                f"{FIRST_DESIGN_MS[kb]:.4f} ms (NVIDIA H100 80GB HBM3, 700 "
-                f"W, by CUDA events) -> this run {kf} {f_events_ms:.4f} ms "
-                f"by events = {FIRST_DESIGN_MS[kf] / f_events_ms:.2f}x, "
-                f"{kb} {b_events_ms:.4f} ms = "
-                f"{FIRST_DESIGN_MS[kb] / b_events_ms:.2f}x")
-        bf, byf = bound(f_bytes, pairs * K1_OPS_PER_PAIR)
-        bb, byb = bound(b_bytes, pairs * K2_OPS_PER_PAIR)
-        log(f"training shape {kind}{note}: {pairs} contributing (pixel, "
-            f"splat) pairs; {kf} {f_ms:.4f} ms in a CUDA-graph replay, "
-            f"{f_events_ms:.4f} ms by CUDA events around eager launches "
-            f"(plain fwd {plain_f_ms:.2f} ms, bound {bf:.5f} ms by {byf}); "
-            f"{kb} {b_ms:.4f} ms in a replay, {b_events_ms:.4f} ms by "
-            f"events (plain bwd {plain_b_ms:.2f} ms, bound {bb:.5f} ms by "
-            f"{byb})")
-        cu, mod, fl, bl = sources[kind]
-        e_f, e_b = errs[kind]
-        for name, line, ms, pms, bms, by, err, what in (
-                (kf, fl, f_ms, plain_f_ms, bf, byf, e_f, "forward"),
-                (kb, bl, b_ms, plain_b_ms, bb, byb, e_b, "backward")):
-            rows.append(dict(
-                name=f"{name} {kind} {what}", route="cuda",
-                source=f"instantsplat_tpu_torch/csrc/{cu}",
-                replaces=f"instantsplat_tpu/ops/{mod}:{line}",
-                launches=path_launches[name], max_abs_err=err, ms=ms,
-                plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None))
-    profile_iterations("dense", params, cam, dev)
-    # the capacity paths, sized for the scene as it now stands (the
-    # profiled steps go on training it)
-    for kind, backend in sized_backends(packed, H, W, (1, 2, 1)).items():
-        forward = kernel_table()[{"binned": "K3", "tiled": "K5"}[kind]]
-        before = forward.launches
-        profile_iterations(kind, params, cam, dev, backend, top=5)
-        if forward.launches == before:
-            fail(f"profile {kind}: {backend} never launched {forward.name}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ as numpy arrays.
 `gaussians_from_numpy` / `adam_state_from_numpy` take the fields of the JAX
 `GaussianModel` / `AdamState` (passed as numpy arrays, e.g.
 `{f: np.asarray(getattr(g, f)) for f in PARAM_FIELDS}`) and build the
-port's tensors; `to_numpy` goes back. Nothing here imports JAX.
+port's tensors; `to_numpy` goes back. `lpips_from_numpy` builds the port's
+LPIPS network from the JAX `LpipsVGG` arrays. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from instantsplat_tpu_torch.eval.image_metrics import LpipsVGG
 from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
 from instantsplat_tpu_torch.opt.gaussian_opt import AdamState
 
@@ -40,6 +42,16 @@ def adam_state_from_numpy(m: dict, v: dict, step: int,
         per_point_lr=(None if per_point_lr is None
                       else _t(per_point_lr, device)),
     )
+
+
+def lpips_from_numpy(conv_w, conv_b, lin_w, device="cuda") -> LpipsVGG:
+    """The JAX LpipsVGG's conv_w (HWIO), conv_b and lin_w (HWIO) arrays ->
+    the port's network (OIHW)."""
+    def oihw(ws):
+        return [np.asarray(w).transpose(3, 2, 0, 1) for w in ws]
+
+    return LpipsVGG.from_arrays(oihw(conv_w), conv_b, oihw(lin_w),
+                                device=device)
 
 
 def to_numpy(obj) -> dict:

@@ -1,5 +1,5 @@
-"""Image loading (port of the parts of instantsplat_tpu/data/images.py
-that stage 2 uses).
+"""Image loading and saving (port of the parts of
+instantsplat_tpu/data/images.py that stages 2-5 use).
 
 PNG goes through the package's own codec (data/png.py), so PNG scenes need
 no Pillow. Other formats (JPEG, ...) and resizing use Pillow when it is
@@ -50,3 +50,14 @@ def pil_resize(img_array, resolution_wh):
     img = Image.fromarray(
         np.clip(np.asarray(img_array) * 255.0 + 0.5, 0, 255).astype(np.uint8))
     return np.asarray(img.resize(tuple(resolution_wh)), np.float32) / 255.0
+
+
+def save_image(path, img):
+    """img [H, W, 3] float in [0, 1] -> 8-bit PNG. NaN saves as 0, +inf as
+    1 and -inf as 0 (divergent optimisation states can render non-finite
+    pixels); values are rounded as clip(x * 255 + 0.5) to uint8."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    arr = np.nan_to_num(np.asarray(img, np.float32), nan=0.0, posinf=1.0,
+                        neginf=0.0)
+    png.write_png(path,
+                  np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8))

@@ -1,7 +1,8 @@
 """CLI parameter groups and the persisted cfg_args (port of
 instantsplat_tpu/pipelines/config.py): dataclass fields become --flags,
 booleans become store_true, and training writes the merged namespace to
-<model_path>/cfg_args for the later stages."""
+<model_path>/cfg_args, which the later stages merge with their command
+line (`get_combined_args`). Both packages write and read the same file."""
 
 from __future__ import annotations
 
@@ -74,3 +75,21 @@ def save_cfg_args(model_path, args: Namespace):
     Path(model_path).mkdir(parents=True, exist_ok=True)
     with open(Path(model_path) / "cfg_args", "w") as f:
         f.write(str(Namespace(**vars(args))))
+
+
+def get_combined_args(parser: ArgumentParser, argv=None) -> Namespace:
+    """The saved <model_path>/cfg_args (a Namespace repr) merged with the
+    command line: a value given on the command line (one that differs from
+    the parser's default) wins, and so does any name the file lacks."""
+    cmdline = parser.parse_args(argv)
+    try:
+        text = (Path(cmdline.model_path) / "cfg_args").read_text()
+    except (OSError, AttributeError, TypeError):
+        return cmdline
+    saved = eval(text, {"__builtins__": {}}, {"Namespace": Namespace})
+    merged = vars(saved).copy()
+    defaults = vars(parser.parse_args([]))
+    for k, v in vars(cmdline).items():
+        if k not in merged or v != defaults.get(k):
+            merged[k] = v
+    return Namespace(**merged)

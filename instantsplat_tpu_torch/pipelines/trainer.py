@@ -96,32 +96,35 @@ _SWITCH_SHARE = 0.87
 _clock = time.perf_counter
 
 
-def _tiled_candidate(params, camera) -> Optional[str]:
-    """'pallas-tiled:CF:DY:DX' sized for the CURRENT scene, or None when
-    out of range (huge splats blow the level product; huge images blow the
-    int32 tile*splat key space)."""
+def _tiled_candidate(params, camera, pose) -> Optional[str]:
+    """'pallas-tiled:CF:DY:DX' sized for the CURRENT scene seen from
+    `pose`, or None when out of range (huge splats blow the level product;
+    huge images blow the int32 tile*splat key space)."""
     n = int(params.xyz.shape[0])
     if rasterize_pallas_tiled.geometry(camera.height, camera.width).n_seg \
             * (n + 1) >= 2**31:
         return None
-    cf, dy, dx = tiled_view_requirements(params, params.get_pose(0), camera)
+    cf, dy, dx = tiled_view_requirements(params, pose, camera)
     if cf > _MAX_BINNED_CAP_FACTOR or dy * dx > _MAX_TILED_LEVEL_PRODUCT:
         return None
     return f"pallas-tiled:{cf}:{dy}:{dx}"
 
 
-def _binned_candidate(params, camera) -> Optional[str]:
+def _binned_candidate(params, camera, pose=None) -> Optional[str]:
     """The capacity backend string for backend='auto' whose capacities hold
-    every splat of the CURRENT scene state, or None when the needed
-    capacity is unreasonable. Prefers the 2-D tiled backend (tighter
-    culling); falls back to the 1-D binned one when the tile levels are out
-    of range (giant splats). A failed probe logs a warning and returns None
-    (auto then stays dense)."""
+    every splat of the CURRENT scene state seen from `pose` (default: the
+    learnable pose of view 0), or None when the needed capacity is
+    unreasonable. Prefers the 2-D tiled backend (tighter culling); falls
+    back to the 1-D binned one when the tile levels are out of range
+    (giant splats). A failed probe logs a warning and returns None (auto
+    then stays dense)."""
+    if pose is None:
+        pose = params.get_pose(0)
     try:
-        cand = _tiled_candidate(params, camera)
+        cand = _tiled_candidate(params, camera, pose)
         if cand is not None:
             return cand
-        cf, dl = binned_view_requirements(params, params.get_pose(0), camera)
+        cf, dl = binned_view_requirements(params, pose, camera)
         if cf > _MAX_BINNED_CAP_FACTOR or dl > _MAX_BINNED_D_LEVELS:
             return None
         return f"pallas-binned:{cf}:{dl}"

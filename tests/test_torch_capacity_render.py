@@ -23,6 +23,9 @@ from instantsplat_tpu_torch.ops import rasterize_pallas_binned as B
 from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as T
 from test_torch_capacity import cols4, packed_of, random_splats
 
+# the test workers share the machine's cores: two intra-op threads each
+torch.set_num_threads(2)
+
 H, W, N = 48, 64, 2000
 NAMES = ("mean2d", "conic", "log_op", "colors", "depth", "bg")
 # packed columns of each per-splat gradient

@@ -24,6 +24,9 @@ from instantsplat_tpu_torch.ops.knn import mean_knn_dist2
 from instantsplat_tpu_torch.utils import schedules, sh
 from instantsplat_tpu_torch.utils import transforms as T
 
+# the test workers share the machine's cores: two intra-op threads each
+torch.set_num_threads(2)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 

@@ -13,6 +13,9 @@ from instantsplat_tpu.ops import frontend as jfront
 from instantsplat_tpu_torch.models.gaussians import GaussianModel
 from instantsplat_tpu_torch.ops import frontend
 
+# the test workers share the machine's cores: two intra-op threads each
+torch.set_num_threads(2)
+
 H, W = 48, 64
 FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
           "opacity")

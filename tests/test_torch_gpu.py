@@ -335,3 +335,85 @@ def test_train_step_launches_tiled_kernels(cuda, kind):
     assert {name: k.launches - before[name] for name, k in kernels.items()
             } == {name: int(name in mine) for name in kernels}
     assert np.isfinite(float(m["loss"]))
+
+
+# ---- stages 3 and 5 on the card -------------------------------------------
+
+
+def test_refiner_on_card_matches_cpu(cuda):
+    """Ten refinement steps through K1/K2 against the plain path on the
+    CPU: the pose within the CPU test's tolerance (atol 1e-5), the loss
+    within rtol 1e-5; K2 launches once a step."""
+    from instantsplat_tpu_torch.pipelines.render_pipeline import (
+        make_pose_refiner)
+    from torch_scenes import H, W, refine_case
+
+    arrays, M, gt, pose0 = refine_case()
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = GaussianModel(**{f: torch.tensor(v, device=dev)
+                             for f, v in arrays.items()}, max_sh_degree=1)
+        cam = Camera.create(M[:3, :3], M[:3, 3], fx=60.0, fy=60.0, height=H,
+                            width=W, image=gt, device=dev)
+        before = RP.K2.launches
+        pose, loss = make_pose_refiner(g, cam, num_iter=10)(pose0, cam.image)
+        assert RP.K2.launches - before == (10 if dev.type == "cuda" else 0)
+        out[dev.type] = (pose.cpu().numpy(), float(loss))
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5)
+
+
+def test_lpips_on_card_is_full_float32(cuda):
+    """LPIPS on the card against the CPU within rtol 1e-4, which TF32
+    convolutions would miss; the TF32 switch is left as it was found."""
+    from instantsplat_tpu_torch.eval.image_metrics import LpipsVGG, lpips
+
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(96, 128, 3)).astype(np.float32)
+    y = np.clip(x + rng.normal(size=x.shape) * 0.1, 0, 1).astype(np.float32)
+    torch.backends.cudnn.allow_tf32 = True
+    vals = {}
+    for dev in (cuda, torch.device("cpu")):
+        vals[dev.type] = float(lpips(torch.tensor(x, device=dev),
+                                     torch.tensor(y, device=dev),
+                                     LpipsVGG.random(0, device=dev)))
+    assert torch.backends.cudnn.allow_tf32
+    np.testing.assert_allclose(vals["cuda"], vals["cpu"], rtol=1e-4)
+
+
+def test_render_and_metrics_on_card(cuda, tmp_path):
+    """Stage 2 for a few iterations, then run_render (5 refinement steps a
+    test view) and run_metrics, all on the card: the trees the JAX stages
+    write, finite metrics, and K2 launched once a refinement step."""
+    import json
+
+    from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
+    from instantsplat_tpu_torch.pipelines import (metrics_pipeline,
+                                                  render_pipeline,
+                                                  train_pipeline)
+    from instantsplat_tpu_torch.pipelines.config import ModelParams
+    from instantsplat_tpu_torch.pipelines.trainer import TrainerConfig
+    from torch_scenes import TEST_ANGLES, write_eval_scene
+
+    write_eval_scene(tmp_path / "scene")
+    model = ModelParams(sh_degree=2, source_path=str(tmp_path / "scene"),
+                        n_views=3, model_path=str(tmp_path / "model"))
+    train_pipeline.run_training(
+        model, OptimizationConfig(pp_optimizer=True, optim_pose=True),
+        TrainerConfig(iterations=3, backend="pallas"))
+    before = RP.K2.launches
+    it = render_pipeline.run_render(model, optim_test_pose_iter=5,
+                                    test_fps=False)
+    assert RP.K2.launches - before == 5 * len(TEST_ANGLES)
+    res = metrics_pipeline.run_metrics([model.model_path],
+                                       model.source_path, 3)
+    vals = res[model.model_path][f"ours_{it}"]
+    assert vals["LPIPS"] is None
+    assert all(np.isfinite(vals[k]) for k in ("PSNR", "SSIM", "ATE",
+                                              "RPE_t", "RPE_r"))
+    saved = json.loads((tmp_path / "model" / "results.json").read_text())
+    assert saved == res[model.model_path]
+    for split, n in (("train", 3), ("test", len(TEST_ANGLES))):
+        assert len(list((tmp_path / "model" / split / f"ours_{it}"
+                         / "renders").glob("*.png"))) == n

@@ -24,6 +24,9 @@ from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
 from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
 from instantsplat_tpu_torch.render.driver import prepare_packed_splats
 
+# the test workers share the machine's cores: two intra-op threads each
+torch.set_num_threads(2)
+
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
 
 import torch_lists_ab  # noqa: E402

@@ -16,6 +16,9 @@ from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
 from instantsplat_tpu_torch.ops import losses, ssim
 from instantsplat_tpu_torch.opt import gaussian_opt as opt
 
+# the test workers share the machine's cores: two intra-op threads each
+torch.set_num_threads(2)
+
 
 def _images(seed, shape):
     rng = np.random.default_rng(seed)

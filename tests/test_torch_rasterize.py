@@ -30,6 +30,9 @@ from instantsplat_tpu_torch.ops import cuda_build
 from instantsplat_tpu_torch.render import driver
 from instantsplat_tpu_torch.render.driver import prepare_packed_splats, render
 
+# the test workers share the machine's cores: two intra-op threads each
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "scripts"))
 

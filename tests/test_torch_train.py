@@ -20,55 +20,18 @@ from instantsplat_tpu.opt.gaussian_opt import (
 from instantsplat_tpu.pipelines import train_pipeline as jpipe
 from instantsplat_tpu.pipelines.config import ModelParams as JModelParams
 from instantsplat_tpu.pipelines.trainer import TrainerConfig as JTrainerConfig
-from instantsplat_tpu_torch.data import colmap, png, ply
 from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS
 from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
 from instantsplat_tpu_torch.pipelines import train_pipeline as pipe
 from instantsplat_tpu_torch.pipelines.config import ModelParams
 from instantsplat_tpu_torch.pipelines.trainer import TrainerConfig
-from instantsplat_tpu_torch.utils import transforms as T
+from torch_scenes import write_tiny_scene
+
+# the test workers share the machine's cores: two intra-op threads each
+torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
-H, W, N_PTS, ITERS = 48, 64, 500, 5
-
-
-def _look_at(eye):
-    fwd = -np.asarray(eye, np.float64)
-    fwd /= np.linalg.norm(fwd)
-    right = np.cross([0.0, -1.0, 0.0], fwd)
-    right /= np.linalg.norm(right)
-    R = np.stack([right, np.cross(fwd, right), fwd])
-    M = np.eye(4)
-    M[:3, :3], M[:3, 3] = R, -R @ np.asarray(eye)
-    return M
-
-
-def write_tiny_scene(root: Path, seed=0):
-    """sparse_3/0 (COLMAP text + points3D.ply) and images/*.png."""
-    rng = np.random.default_rng(seed)
-    sparse = root / "sparse_3" / "0"
-    sparse.mkdir(parents=True)
-    (root / "images").mkdir()
-    pts = rng.normal(size=(N_PTS, 3)) * [0.8, 0.6, 0.4]
-    # no color at exactly 0: there SH + 0.5 sits on the max(., 0) clamp,
-    # where jitted JAX (an FMA leaves it at -eps) and eager PyTorch take
-    # different subgradients (ROADMAP.md queue 3)
-    ply.store_point_cloud(sparse / "points3D.ply", pts,
-                          rng.uniform(1, 255, (N_PTS, 3)))
-    yy, xx = np.mgrid[0:H, 0:W] / 10.0
-    cams, ims = {}, {}
-    for i, ang in enumerate((-0.2, 0.0, 0.2)):
-        img = np.stack([np.sin(xx + i), np.cos(yy - i), np.sin(xx * yy)], -1)
-        png.write_png(root / "images" / f"{i:03d}.png",
-                      ((img * 0.4 + 0.5) * 255).astype(np.uint8))
-        w2c = _look_at((4 * np.sin(ang), 0.2, -4 * np.cos(ang)))
-        cams[i + 1] = colmap.ColmapCamera(i + 1, "PINHOLE", W, H,
-                                          np.array([60.0, 60.0, W / 2,
-                                                    H / 2]))
-        ims[i + 1] = colmap.ColmapImage(i + 1, T.rotmat_to_qvec(w2c[:3, :3]),
-                                        w2c[:3, 3], i + 1, f"{i:03d}.png")
-    colmap.write_cameras_text(cams, sparse / "cameras.txt")
-    colmap.write_images_text(ims, sparse / "images.txt")
+ITERS = 5
 
 
 @pytest.fixture(scope="module")
