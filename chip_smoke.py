@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stages 2, 3 and 5 on one NVIDIA card and
-check them.
+"""Drive the PyTorch + CUDA port's stages 1, 2, 3 and 5 on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -77,6 +77,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    iteration, seconds per view, FPS, ms per interpolated frame and the
    metrics stage's seconds beside the card's name and power limit.
 
+7. Stage 1 (init_geo), which launches none of the seven kernels, on
+   copies of phase 4's dataset (the 15 PNG frames and sparse/0; phase 4's
+   sparse_3 left out): the full-width MASt3R (ViT-L encoder, two 12-block
+   decoders, DPT + local-feature heads) with random:0 weights on one pair
+   in float32 (TF32 off) against the CPU, relative L2 of the encoder
+   tokens, every decoder hook, pts3d, conf and desc; bf16 against float32
+   over all six pairs under tests/test_mast3r.py's law; encoder ms per
+   image and decoder + heads ms per pair (batch 6) in bf16 and float32.
+   Then instantsplat_tpu_torch.cli.init_geo.main as scripts/run_eval.py
+   calls it (--ckpt_path random:0 --focal_avg --co_vis_dsp
+   --conf_aware_ranking, bf16): every artifact, finite points and poses,
+   the stage's wall time and its parts. Then run_init_geo with an oracle
+   pointmap backend (the ray-cast geometry of the three train views plus
+   seeded noise of 0.01) and 300 aligner iterations: the focal within 5%
+   and every pose within 1 degree and 1% of the scene scale of the truth
+   (relative to the first camera); the card's aligner against the CPU's
+   on the same inputs (100 iterations); device events per aligner
+   iteration (torch.profiler). Last, 20 iterations of
+   cli.train (--backend pallas) on the oracle output: the loss falls and
+   KR, K1 and K2 launch 20 times each.
+
 The last lines are one JSON object {"kernels": [...]} with seven entries,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
@@ -141,6 +162,25 @@ LPIPS_RTOL = 1e-4
 FIRST_DESIGN_MS = {"K3": 1.4631, "K4": 1.6989, "K5": 0.6264, "K6": 0.9697}
 # list entries one scan pass of K3-K6 takes (csrc/rasterize_lists.cu PASS)
 LIST_PASS = 1024
+# Phase 7 (stage 1). The full-width MASt3R in float32 (TF32 off) on the
+# card against the CPU, relative L2: summation orders differ (cuBLAS /
+# cuDNN against oneDNN) by ~1e-7 relative per matmul and grow through 24
+# encoder and 12 decoder blocks of random weights to ~1e-6; pts3d
+# (expm1 of the head's output norm) and conf (exp) scale an absolute error
+# by the output's magnitude, so they get ten times the room
+MAST3R_FP32_RTOL = 1e-4
+MAST3R_HEAD_RTOL = 1e-3
+ALIGN_ITERS = 300  # the reference's global alignment
+# the card's aligner against the CPU's on the same oracle inputs (100
+# iterations: 300 take the CPU ~30 s): the backward of the per-edge
+# gathers adds with atomics on the card, so the two differ by rounding,
+# which Adam on a well-posed loss keeps small
+ALIGN_COMPARE_ITERS = 100
+ALIGN_LOSS_RTOL = 1e-3
+ALIGN_POSE_ATOL = 1e-3
+ORACLE_NOISE = 0.01  # on the oracle pointmaps (the cameras stand 4 away)
+SCENE_SCALE = 4.0  # the cameras' distance from the surface's centre
+STAGE1_TRAIN_ITERS = 20
 
 
 def fail(msg: str):
@@ -218,20 +258,26 @@ def texture(x, y):
     return np.clip(c * (0.75 + 0.25 * checker), 0.0, 1.0)
 
 
-def ray_cast(w2c, fx):
-    """[H, W, 3] image of the textured relief surface seen by `w2c`."""
+def surface_hits(w2c, fx, cx, cy):
+    """[H, W, 3] world points where the rays of `w2c`'s pixels (principal
+    point cx, cy) meet the relief surface."""
     import numpy as np
 
     gy, gx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     c2w = np.linalg.inv(w2c)
-    d = np.stack([(gx - (W - 1) / 2) / fx, (gy - (H - 1) / 2) / fx,
+    d = np.stack([(gx - cx) / fx, (gy - cy) / fx,
                   np.ones_like(gx, np.float64)], -1) @ c2w[:3, :3].T
     o = c2w[:3, 3]
     t = -o[2] / d[..., 2]  # plane z = 0, then fixed-point refinement
     for _ in range(8):
         p = o + t[..., None] * d
         t = (surface(p[..., 0], p[..., 1]) - o[2]) / d[..., 2]
-    p = o + t[..., None] * d
+    return o + t[..., None] * d
+
+
+def ray_cast(w2c, fx):
+    """[H, W, 3] image of the textured relief surface seen by `w2c`."""
+    p = surface_hits(w2c, fx, (W - 1) / 2, (H - 1) / 2)
     return texture(p[..., 0], p[..., 1])
 
 
@@ -282,8 +328,8 @@ def write_scene(root: Path, seed: int = 0):
     splits = {"sparse_3/0": ({}, {}), "sparse_3/1": ({}, {}),
               "sparse/0": ({}, {})}
     jitter = np.random.default_rng(seed + 1)
-    for k, ang in enumerate(FRAME_ANGLES):
-        w2c = look_at_w2c((4.0 * np.sin(ang), 0.3, -4.0 * np.cos(ang)))
+    for k in range(len(FRAME_ANGLES)):
+        w2c = frame_w2c(k)
         name = f"{k:03d}.png"
         png.write_png(root / "images" / name, np.clip(
             ray_cast(w2c, fx) * 255.0 + 0.5, 0, 255).astype(np.uint8))
@@ -590,17 +636,20 @@ def profile_window(tag, backend, run, iters: int, top: int):
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
+    n_events = sum(e.device_type == DeviceType.CUDA for e in prof.events())
     if not by_name:
         log(f"profile {tag}: torch.profiler recorded no device events")
-        return
+        return 0.0, 0
     log(f"profile {tag} ({backend}): {iters} iterations, "
         f"{wall_ms / iters:.2f} ms/iter wall "
         f"(profiler on), device busy {busy_ms / iters:.2f} ms/iter = "
         f"{100 * busy_ms / wall_ms:.1f}% (idle {100 - 100 * busy_ms / wall_ms:.1f}%)"
-        f", {len(by_name)} kernel names")
+        f", {len(by_name)} kernel names, {n_events / iters:.1f} device "
+        "events/iter")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"profile {tag}: {ms / iters:8.3f} ms/iter "
             f"{100 * ms / busy_ms:5.1f}% {name[:110]}")
+    return busy_ms, n_events
 
 
 def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
@@ -1134,6 +1183,317 @@ def stages_3_and_5(scene: Path, model: Path, dev, smi: str):
         fail("LPIPS on the card differs from the CPU's (TF32?)")
 
 
+def oracle_pointmap_fn(frames, fx, seed=0):
+    """pointmap_fn(images, pairs) of the exact geometry of `frames`: each
+    pixel's surface point (principal point W/2, H/2, as the aligner's
+    unprojection) in view i's camera frame, plus seeded noise of
+    ORACLE_NOISE, which keeps the aligner's loss off its rounding floor;
+    confidences 1 + exp(U[0, 1)), as tests/test_pipeline_e2e.py's."""
+    import numpy as np
+
+    from instantsplat_tpu_torch.init.aligner import PairPrediction
+
+    w2c = [frame_w2c(k) for k in frames]
+    world = [surface_hits(m, fx, W / 2, H / 2) for m in w2c]
+
+    def fn(imgs, pairs):
+        rng = np.random.default_rng(seed)
+
+        def cam(v, i):  # view v's points in camera i's frame
+            return world[v] @ w2c[i][:3, :3].T + w2c[i][:3, 3]
+
+        shape = (len(pairs), H, W, 3)
+        pred_i = np.stack([cam(i, i) for i, _ in pairs])
+        pred_j = np.stack([cam(j, i) for i, j in pairs])
+        conf = 1.0 + np.exp(rng.random(shape[:3]).astype(np.float32))
+        noise = ORACLE_NOISE * rng.standard_normal((2,) + shape)
+        return PairPrediction(
+            edges=list(pairs), pred_i=(pred_i + noise[0]).astype(np.float32),
+            pred_j=(pred_j + noise[1]).astype(np.float32), conf_i=conf,
+            conf_j=conf * 1.05)
+
+    return fn
+
+
+def frame_w2c(k):
+    """w2c of frame k of the dataset: on an arc of radius 4 about the
+    surface's centre, 0.3 above it, looking at it."""
+    import numpy as np
+
+    ang = FRAME_ANGLES[k]
+    return look_at_w2c((4.0 * np.sin(ang), 0.3, -4.0 * np.cos(ang)))
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def mast3r_pair(model, x):
+    """Encoder tokens, both decoders' hooks and both heads' outputs of the
+    pair x [2, H, W, 3]."""
+    import torch
+
+    with torch.no_grad():
+        f, grid = model.encode(x)
+        d1, d2 = model.decode(f[:1], grid, f[1:], grid)
+        r1 = model.downstream_head1(d1, H, W)
+        r2 = model.downstream_head2(d2, H, W)
+    return f, d1, d2, r1, r2
+
+
+def stage_1_mast3r(scene: Path, dev, smi: str):
+    """Phase 7, part 1: the full-width MASt3R with random:0 weights on the
+    card; fp32 against the CPU, bf16 against fp32, and the times."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.data.images import load_images
+    from instantsplat_tpu_torch.init.pairs import make_pair_indices
+    from instantsplat_tpu_torch.models import mast3r
+    from instantsplat_tpu_torch.models.mast3r_infer import infer_pairs
+
+    imgs = load_images([scene / "images" / f"{k:03d}.png"
+                        for k in TRAIN_FRAMES], size=max(H, W))[0]
+    t0 = time.time()
+    model = mast3r.build_model("random:0", device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"MASt3R ViT-L/BaseDecoder random:0: {n_params / 1e6:.1f} M "
+        f"parameters drawn and on the card in {time.time() - t0:.1f} s")
+
+    # fp32, TF32 off: the card against the CPU on one pair
+    x = torch.as_tensor(imgs[:2])
+    t0 = time.time()
+    cpu = mast3r_pair(copy.deepcopy(model).cpu(), x)
+    cpu_s = time.time() - t0
+    card = mast3r_pair(model, x.to(dev))
+    worst = {}
+    for what, i in (("encoder tokens", 0), ("decoder 1 hooks", 1),
+                    ("decoder 2 hooks", 2)):
+        if i == 0:
+            worst[what] = rel_l2(card[0], cpu[0])
+        else:
+            worst[what] = max(rel_l2(a, b) for a, b in zip(card[i], cpu[i]))
+    for k in ("pts3d", "conf", "desc"):
+        worst[k] = max(rel_l2(card[3][k], cpu[3][k]),
+                       rel_l2(card[4][k], cpu[4][k]))
+    log(f"MASt3R fp32 one pair {W}x{H}, card against the CPU ({cpu_s:.1f} s "
+        "on the CPU), relative L2: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (limits {MAST3R_FP32_RTOL:g}; pts3d and conf "
+        f"{MAST3R_HEAD_RTOL:g})")
+    for k, v in worst.items():
+        lim = MAST3R_HEAD_RTOL if k in ("pts3d", "conf") else MAST3R_FP32_RTOL
+        if not v <= lim:
+            fail(f"MASt3R fp32 on the card: {k} differs from the CPU by "
+                 f"{v:.3e} > {lim:g}")
+    del cpu, card
+
+    # bf16 against fp32 on the card: the law of tests/test_mast3r.py
+    pairs = make_pair_indices(len(imgs), "complete", symmetrize=True)
+    model16 = copy.deepcopy(model).cast(torch.bfloat16)
+    p32 = infer_pairs(model, imgs, pairs, batch_size=len(pairs))
+    p16 = infer_pairs(model16, imgs, pairs, batch_size=len(pairs))
+    for side in ("i", "j"):
+        a, b = getattr(p16, f"pred_{side}"), getattr(p32, f"pred_{side}")
+        d = np.abs(a - b) / np.abs(b).max()
+        q = float(np.quantile(d, 0.999))
+        log(f"MASt3R bf16 against fp32, all {len(pairs)} pairs, pred_{side}: "
+            f"99.9% quantile {q:.3e} (limit 0.05), max {d.max():.3e} "
+            f"(limit 0.5) of max|pts3d| {np.abs(b).max():.3e}")
+        if not (q < 0.05 and d.max() < 0.5):
+            fail(f"MASt3R bf16 pred_{side} is off the law")
+    if not np.isfinite(p16.pred_i).all() or p16.pred_i.dtype != np.float32:
+        fail("MASt3R bf16 outputs are not finite float32")
+
+    # times: encoder per image (all three in one batch) and decoder +
+    # heads per pair (all six pairs in one batch), warm: CUDA events
+    # around eager calls (what the stage sees; in bf16 the host's launches
+    # can be the slower) and a CUDA-graph replay (the device's time)
+    x3 = torch.as_tensor(imgs, device=dev)
+    ei = torch.as_tensor([i for i, _ in pairs], device=dev)
+    ej = torch.as_tensor([j for _, j in pairs], device=dev)
+    for name, m in (("bf16", model16), ("fp32", model)):
+        with torch.no_grad():
+            f, _ = m.encode(x3)
+
+            def enc():
+                m.encode(x3)
+
+            def dec():
+                m.forward_from_encoded(f[ei], f[ej], (H, W))
+
+            ms = {k: (cuda_ms(fn, reps=5) / n, graph_ms(fn, reps=3) / n)
+                  for k, fn, n in (("encoder", enc, len(imgs)),
+                                   ("decoder + heads", dec, len(pairs)))}
+        log(f"MASt3R {name} times [{smi}]: encoder {ms['encoder'][0]:.2f} "
+            f"ms per image (graph replay {ms['encoder'][1]:.2f}), decoder + "
+            f"heads {ms['decoder + heads'][0]:.2f} ms per pair (graph "
+            f"replay {ms['decoder + heads'][1]:.2f}), batch {len(pairs)} "
+            "pairs")
+    del model, model16
+    torch.cuda.empty_cache()
+
+
+def stage_1(scene: Path, tmp: Path, dev, smi: str):
+    """Phase 7: stage 1 (init_geo) on copies of phase 4's dataset (the 15
+    PNG frames and sparse/0, without phase 4's sparse_3)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.cli import init_geo as init_cli
+    from instantsplat_tpu_torch.cli import train as train_cli
+    from instantsplat_tpu_torch.data import colmap
+    from instantsplat_tpu_torch.eval.pose_metrics import (
+        align_ate_c2b_use_a2b, rotation_error)
+    from instantsplat_tpu_torch.init.aligner import GlobalAligner
+    from instantsplat_tpu_torch.init.pairs import make_pair_indices
+    from instantsplat_tpu_torch.pipelines.init_geo_pipeline import (
+        run_init_geo)
+
+    t_phase = time.time()
+    stage_1_mast3r(scene, dev, smi)
+
+    copies = {}
+    for name in ("cli", "oracle"):
+        copies[name] = tmp / f"stage1_{name}"
+        shutil.copytree(scene / "images", copies[name] / "images")
+        shutil.copytree(scene / "sparse" / "0", copies[name] / "sparse" / "0")
+
+    # ---- cli.init_geo as scripts/run_eval.py calls it ----
+    al, _, secs, launches, _ = run_cli(init_cli.main, [
+        "-s", copies["cli"], "-m", tmp / "stage1_cli_out", "--n_views", 3,
+        "--ckpt_path", "random:0", "--focal_avg", "--co_vis_dsp",
+        "--conf_aware_ranking"])
+    sparse = copies["cli"] / "sparse_3"
+    for rel in ("0/images.txt", "0/images.bin", "0/cameras.txt",
+                "0/points3D.ply", "0/confidence_dsp.npy", "1/images.txt"):
+        if not (sparse / rel).is_file():
+            fail(f"init_geo: artifact missing: sparse_3/{rel}")
+    pts = np.load(sparse / "0" / "points3D_all.npy")
+    if not (np.isfinite(pts).all() and np.isfinite(al.get_im_poses()).all()):
+        fail("init_geo: non-finite points or poses")
+    if any(launches.values()):
+        fail(f"init_geo launched compositor kernels: {launches}")
+    t = al.timings
+    build = secs - sum(t.values())
+    log(f"init_geo [{smi}]: {secs:.2f} s for the stage (3 views {W}x{H}, "
+        f"bf16, random:0): model build {build:.2f} s, image load "
+        f"{t['load']:.2f} s, inference {t['inference']:.2f} s, init_mst "
+        f"{t['init_mst']:.2f} s, align {t['align']:.2f} s = "
+        f"{t['align'] / ALIGN_ITERS * 1e3:.2f} ms per iteration over "
+        f"{ALIGN_ITERS}, writing {t['write']:.2f} s; {len(pts.reshape(-1, 3))}"
+        " points")
+    del al
+    torch.cuda.empty_cache()
+
+    # ---- the aligner against the truth: oracle pointmaps ----
+    fx = 0.9 * W
+    oracle = oracle_pointmap_fn(TRAIN_FRAMES, fx)
+    np.random.seed(0)  # save_points3d's downsample draws from it
+    t0 = time.time()
+    al = run_init_geo(copies["oracle"], tmp / "stage1_oracle_out", oracle,
+                      n_views=3, image_size=max(H, W),
+                      niter=ALIGN_ITERS, focal_avg=True,
+                      conf_aware_ranking=True, co_vis_dsp=True,
+                      max_pts=N_POINTS, device=dev)
+    log(f"init_geo oracle on the card: {time.time() - t0:.2f} s, align "
+        f"{al.timings['align'] * 1e3 / ALIGN_ITERS:.2f} ms per iteration")
+    focal = float(al.get_focals()[0])
+    gt = np.stack([np.linalg.inv(frame_w2c(k)) for k in TRAIN_FRAMES])
+    # the similarity maps the first train camera onto its truth and scales
+    # the centres' spread onto theirs, so each other pose is judged
+    # relative to it. A least-squares fit of the centres (the ATE's) or of
+    # centres plus points 1/100 of their spread along the optical axes
+    # leaves the turn about the centres' chord nearly free: they sit on a
+    # 0.3 rad arc, sagitta 0.045 for a chord of 1.2, so a centre error of
+    # 1e-3 turns every camera by a degree
+    est = al.get_im_poses()
+
+    def spread(c):
+        return np.linalg.norm(c[:, None] - c[None], axis=-1).sum()
+
+    est[:, :3, 3] *= spread(gt[:, :3, 3]) / spread(est[:, :3, 3])
+    est = gt[0] @ np.linalg.inv(est[0]) @ est
+    rot = [np.degrees(rotation_error(g[:3, :3].T @ e[:3, :3]))
+           for g, e in zip(gt, est)]
+    dist = [float(np.linalg.norm(g[:3, 3] - e[:3, 3]) / SCENE_SCALE)
+            for g, e in zip(gt, est)]
+    ate = align_ate_c2b_use_a2b(al.get_im_poses(), gt)
+    ate_rot = [np.degrees(rotation_error(g[:3, :3].T @ e[:3, :3]))
+               for g, e in zip(gt, ate)]
+    log(f"init_geo oracle: focal {focal:.2f} against the true {fx:.2f} "
+        f"({100 * abs(focal - fx) / fx:.3f}%, limit 5%); relative to the "
+        "first camera, rotation errors " + ", ".join(
+            f"{r:.4f}" for r in rot) + " degrees (limit 1), centre errors "
+        + ", ".join(f"{100 * d:.4f}" for d in dist) + "% of the scene scale "
+        "(limit 1%); after the ATE's centre alignment, rotation errors "
+        + ", ".join(f"{r:.4f}" for r in ate_rot) + " degrees (not checked)")
+    if not abs(focal - fx) / fx < 0.05:
+        fail("init_geo oracle: the focal is off the truth by more than 5%")
+    if not (max(rot) < 1.0 and max(dist) < 0.01):
+        fail("init_geo oracle: a pose is off the truth")
+
+    # the card's aligner against the CPU's on the same inputs
+    preds = oracle(None, make_pair_indices(3, "complete", symmetrize=True))
+    t0 = time.time()
+    cpu = GlobalAligner(preds, device="cpu")
+    cpu.init_mst(focal_avg=True)
+    cpu_loss = cpu.align(niter=ALIGN_COMPARE_ITERS)
+    card = GlobalAligner(preds, device=dev)
+    card.init_mst(focal_avg=True)
+    card_loss = card.align(niter=ALIGN_COMPARE_ITERS)
+    d_loss = abs(card_loss - cpu_loss) / cpu_loss
+    d_pose = float(np.abs(card.get_im_poses() - cpu.get_im_poses()).max())
+    d_focal = float(np.abs(card.get_focals() - cpu.get_focals()).max())
+    log(f"aligner, {ALIGN_COMPARE_ITERS} iterations, card against the CPU "
+        f"({time.time() - t0:.1f} s both): final loss {card_loss:.6e} / "
+        f"{cpu_loss:.6e}, relative {d_loss:.3e} (limit {ALIGN_LOSS_RTOL:g}); "
+        f"poses max |d| {d_pose:.3e} (limit {ALIGN_POSE_ATOL:g}); focal "
+        f"|d| {d_focal:.3e}")
+    if not (d_loss <= ALIGN_LOSS_RTOL and d_pose <= ALIGN_POSE_ATOL):
+        fail("aligner: the card's result differs from the CPU's")
+    events = {}
+    for n in (0, 10):
+        a = GlobalAligner(preds, device=dev)
+        a.init_mst(focal_avg=True)
+        _, events[n] = profile_window(f"align {n} iterations", "aligner",
+                                      lambda: a.align(niter=n), max(n, 1),
+                                      top=4)
+    log(f"aligner: {(events[10] - events[0]) / 10:.1f} device events "
+        "(kernel launches and copies) per iteration")
+    if not events[10] > events[0]:
+        fail("aligner: torch.profiler saw no device work in its iterations")
+    del al, card
+    torch.cuda.empty_cache()
+
+    # ---- stage 1 feeds stage 2 ----
+    (_, history), _, secs, launches, _ = run_cli(train_cli.main, [
+        "-s", copies["oracle"], "-m", tmp / "stage1_train", "--n_views", 3,
+        "--iterations", STAGE1_TRAIN_ITERS, "--pp_optimizer", "--optim_pose",
+        "--log_every", 1, "--backend", "pallas", "--quiet"])
+    losses = [m["loss"] for _, m in history]
+    log(f"train on the oracle init_geo output: {len(losses)} iterations in "
+        f"{secs:.1f} s, loss {losses[0]:.5f} -> {losses[-1]:.5f}; launches "
+        f"{launches}")
+    if not losses[-1] < losses[0]:
+        fail("train on stage 1's output: the loss did not fall")
+    if any(launches[k] != STAGE1_TRAIN_ITERS for k in ("KR", "K1", "K2")):
+        fail(f"train on stage 1's output: launches {launches}")
+    cams = colmap.read_cameras_text(copies["oracle"] / "sparse_3" / "0"
+                                    / "cameras.txt")
+    if len(cams) != 3:
+        fail("init_geo oracle: sparse_3/0 does not hold three cameras")
+    log(f"phase 7: {time.time() - t_phase:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -1286,6 +1646,9 @@ def main():
 
         # ---- phase 6: stages 3 and 5 on the dense run's model ------------
         stages_3_and_5(scene, Path(tmp) / "dense", dev, smi)
+
+        # ---- phase 7: stage 1 on copies of the dataset -------------------
+        stage_1(scene, Path(tmp), dev, smi)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

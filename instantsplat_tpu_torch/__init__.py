@@ -8,13 +8,17 @@ package is hand-written CUDA for Hopper: the dense compositor
 the binned and tiled list compositors (`csrc/rasterize_lists.cu`,
 `ops/rasterize_lists.py`).
 
-Ported so far: stage 2, the joint Gaussian + camera-pose optimisation
-(`cli.train` -> `pipelines.train_pipeline.run_training` ->
-`pipelines.trainer.train_joint`), with every rasterizer backend and the
-`auto` probe.
+Ported so far: stage 1 (`cli.init_geo`: MASt3R pair inference, the
+global aligner, the `sparse_{n}` writer), stage 2 (`cli.train`, the joint
+Gaussian + camera-pose optimisation, with every rasterizer backend and
+the `auto` probe), stage 3 (`cli.render`) and stage 5 (`cli.metrics`).
 
 Entry points take an explicit `device` and default to "cuda". Asking for
 CUDA without a card raises; nothing falls back to the CPU.
+
+float32 means float32: importing the package switches TF32 off for cuBLAS
+matmuls and cuDNN convolutions (PyTorch enables it for cuDNN by default),
+so the card computes what the CPU and the JAX package compute.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from __future__ import annotations
 import torch
 
 __version__ = "0.1.0"
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -5,7 +5,8 @@ as numpy arrays.
 `GaussianModel` / `AdamState` (passed as numpy arrays, e.g.
 `{f: np.asarray(getattr(g, f)) for f in PARAM_FIELDS}`) and build the
 port's tensors; `to_numpy` goes back. `lpips_from_numpy` builds the port's
-LPIPS network from the JAX `LpipsVGG` arrays. Nothing here imports JAX.
+LPIPS network from the JAX `LpipsVGG` arrays, `mast3r_from_numpy` the
+MASt3R state dict from the JAX parameter tree. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -71,3 +72,76 @@ def to_numpy(obj) -> dict:
                 "per_point_lr": (None if obj.per_point_lr is None
                                  else a(obj.per_point_lr))}
     raise TypeError(f"cannot convert {type(obj).__name__}")
+
+
+def mast3r_from_numpy(tree) -> dict:
+    """The JAX MASt3R parameter tree (nested dicts and lists of arrays:
+    linears [din, dout], convs HWIO, LayerNorm scale/bias) -> the state
+    dict of the port's `models.mast3r.MASt3R`, under upstream's key names.
+    The DPT resample kernels of branches 0 and 1 are transposed convs:
+    HWIO (cin, cout) -> torch's [cin, cout, kh, kw]."""
+    sd = {}
+
+    def put(name, a):
+        sd[name] = torch.as_tensor(np.ascontiguousarray(a, np.float32))
+
+    def lin(name, p):
+        put(f"{name}.weight", np.asarray(p["w"]).T)
+        put(f"{name}.bias", p["b"])
+
+    def ln(name, p):
+        put(f"{name}.weight", p["scale"])
+        put(f"{name}.bias", p["bias"])
+
+    def conv(name, p, transpose=False):
+        w = np.asarray(p["w"])
+        put(f"{name}.weight", w.transpose((2, 3, 0, 1) if transpose
+                                          else (3, 2, 0, 1)))
+        if "b" in p:
+            put(f"{name}.bias", p["b"])
+
+    def block(pre, p):
+        ln(f"{pre}.norm1", p["norm1"])
+        lin(f"{pre}.attn.qkv", p["attn"]["qkv"])
+        lin(f"{pre}.attn.proj", p["attn"]["proj"])
+        ln(f"{pre}.norm2", p["norm2"])
+        lin(f"{pre}.mlp.fc1", p["mlp"]["fc1"])
+        lin(f"{pre}.mlp.fc2", p["mlp"]["fc2"])
+        if "cross_attn" in p:
+            ln(f"{pre}.norm3", p["norm3"])
+            ln(f"{pre}.norm_y", p["norm_y"])
+            for k in ("projq", "projk", "projv", "proj"):
+                lin(f"{pre}.cross_attn.{k}", p["cross_attn"][k])
+
+    conv("patch_embed.proj", tree["patch_embed"])
+    for i, p in enumerate(tree["enc_blocks"]):
+        block(f"enc_blocks.{i}", p)
+    ln("enc_norm", tree["enc_norm"])
+    lin("decoder_embed", tree["decoder_embed"])
+    for name in ("dec_blocks", "dec_blocks2"):
+        for i, p in enumerate(tree[name]):
+            block(f"{name}.{i}", p)
+    ln("dec_norm", tree["dec_norm"])
+    for n in (1, 2):
+        pre = f"downstream_head{n}"
+        dpt = tree[f"head{n}"]["dpt"]
+        for i, branch in enumerate(dpt["act"]):
+            conv(f"{pre}.dpt.act_postprocess.{i}.0", branch["project"])
+            if "resample" in branch:
+                conv(f"{pre}.dpt.act_postprocess.{i}.1", branch["resample"],
+                     transpose=i in (0, 1))
+        for i, p in enumerate(dpt["layer_rn"]):
+            conv(f"{pre}.dpt.scratch.layer{i + 1}_rn", p)
+        for i, p in enumerate(dpt["refine"]):
+            rp = f"{pre}.dpt.scratch.refinenet{i + 1}"
+            for unit, key in (("resConfUnit1", "res1"),
+                              ("resConfUnit2", "res2")):
+                conv(f"{rp}.{unit}.conv1", p[key]["conv1"])
+                conv(f"{rp}.{unit}.conv2", p[key]["conv2"])
+            conv(f"{rp}.out_conv", p["out_conv"])
+        conv(f"{pre}.dpt.head.0", dpt["head"]["conv1"])
+        conv(f"{pre}.dpt.head.2", dpt["head"]["conv2"])
+        lf = tree[f"head{n}"]["local_features"]
+        lin(f"{pre}.head_local_features.fc1", lf["fc1"])
+        lin(f"{pre}.head_local_features.fc2", lf["fc2"])
+    return sd

@@ -10,10 +10,9 @@ themselves are the public COLMAP spec, src/base/reconstruction.cc):
 - cameras.{bin,txt}: intrinsics records (we emit PINHOLE like the
   reference's save_intrinsics, sfm_utils.py:230-247);
 - images.{bin,txt}: world-to-camera extrinsics as (qvec wxyz, tvec) plus an
-  empty 2D-point track list (sfm_utils.py:225: xys/point3D_ids left empty).
-
-The fused point cloud travels as points3D.ply (data/ply.py), so the
-points3D.{bin,txt} readers and writers are not ported.
+  empty 2D-point track list (sfm_utils.py:225: xys/point3D_ids left empty);
+- points3D.{bin,txt}: xyz, rgb and error with empty tracks (the fused
+  cloud itself travels as points3D.ply, data/ply.py).
 
 These files are the stage-coupling artifact between init_geo and
 train/render (SURVEY.md §1), so byte-level format compatibility matters:
@@ -223,3 +222,68 @@ def write_images_binary(images: dict[int, ColmapImage], path):
             f.write(struct.pack("<Q", len(im.xys)))
             for (x, y), pid in zip(im.xys, im.point3D_ids):
                 f.write(struct.pack("<ddq", float(x), float(y), int(pid)))
+
+
+# ---------------------------------------------------------------------------
+# points3D
+# ---------------------------------------------------------------------------
+
+
+def read_points3d_text(path):
+    """-> (xyz [N,3], rgb [N,3] uint8-valued, error [N,1])."""
+    xyzs, rgbs, errs = [], [], []
+    for line in Path(path).read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        e = line.split()
+        xyzs.append([float(v) for v in e[1:4]])
+        rgbs.append([int(v) for v in e[4:7]])
+        errs.append(float(e[7]))
+    return (np.array(xyzs).reshape(-1, 3), np.array(rgbs).reshape(-1, 3),
+            np.array(errs).reshape(-1, 1))
+
+
+def write_points3d_text(path, xyz, rgb, error=None):
+    xyz = np.asarray(xyz)
+    rgb = np.asarray(rgb).astype(np.int64)
+    error = np.zeros(len(xyz)) if error is None else np.asarray(error).ravel()
+    lines = [
+        "# 3D point list with one line of data per point:",
+        "#   POINT3D_ID, X, Y, Z, R, G, B, ERROR, TRACK[] as (IMAGE_ID, POINT2D_IDX)",
+        f"# Number of points: {len(xyz)}",
+    ]
+    for i in range(len(xyz)):
+        x, y, z = xyz[i]
+        r, g, b = rgb[i]
+        lines.append(f"{i + 1} {x} {y} {z} {r} {g} {b} {error[i]}")
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def read_points3d_binary(path):
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        xyzs = np.empty((n, 3))
+        rgbs = np.empty((n, 3))
+        errs = np.empty((n, 1))
+        for i in range(n):
+            vals = struct.unpack("<QdddBBBd", f.read(43))
+            xyzs[i] = vals[1:4]
+            rgbs[i] = vals[4:7]
+            errs[i] = vals[7]
+            (track_len,) = struct.unpack("<Q", f.read(8))
+            f.read(8 * track_len)
+    return xyzs, rgbs, errs
+
+
+def write_points3d_binary(path, xyz, rgb, error=None):
+    xyz = np.asarray(xyz, np.float64)
+    rgb = np.clip(np.asarray(rgb), 0, 255).astype(np.uint8)
+    error = np.zeros(len(xyz)) if error is None else np.asarray(error).ravel()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)))
+        for i in range(len(xyz)):
+            f.write(struct.pack(
+                "<QdddBBBd", i + 1, *xyz[i], *rgb[i], float(error[i])
+            ))
+            f.write(struct.pack("<Q", 0))  # empty track

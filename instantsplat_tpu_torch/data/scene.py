@@ -1,11 +1,11 @@
-"""Scene reading for stages 2-5 (port of instantsplat_tpu/data/scene.py:
-`split_train_test`, `read_scene`, `read_colmap_gt_pose`, `save_time`).
+"""Scene I/O (port of instantsplat_tpu/data/scene.py, all but the
+NeRF-synthetic reader).
 
-Reads a split of the COLMAP-format scene that stage 1 writes
-(`sparse_{n}/0` train, `sparse_{n}/1` test): text extrinsics and
-intrinsics, cameras sorted by image name, ground-truth images resized to
-the recorded resolution divided by `resolution_scale`, and the fused point
-cloud, which is always `sparse_{n}/0/points3D.ply`.
+Stage 1 writes a COLMAP-format scene (`sparse_{n}/0` train, `sparse_{n}/1`
+test) plus ply/npy sidecars; stages 2-5 read a split of it back: text
+extrinsics and intrinsics, cameras sorted by image name, ground-truth
+images resized to the recorded resolution divided by `resolution_scale`,
+and the fused point cloud, which is always `sparse_{n}/0/points3D.ply`.
 """
 
 from __future__ import annotations
@@ -32,6 +32,122 @@ def split_train_test(items, n_views):
     train_idx = [train_pool[i] for i in sparse]
     return ([items[i] for i in train_idx], [items[i] for i in test_idx],
             train_idx, list(test_idx))
+
+
+def init_filestructure(save_path, n_views):
+    """Create <save_path>/sparse_{n}/0 and /1 (sfm_utils.py:107-120)."""
+    save_path = Path(save_path)
+    tag = f"sparse_{n_views}" if n_views else "sparse_0"
+    sparse_0 = save_path / tag / "0"
+    sparse_1 = save_path / tag / "1"
+    sparse_0.mkdir(parents=True, exist_ok=True)
+    sparse_1.mkdir(parents=True, exist_ok=True)
+    return save_path, sparse_0, sparse_1
+
+
+# ---------------------------------------------------------------------------
+# stage-1 writers (init_geo artifacts)
+# ---------------------------------------------------------------------------
+
+
+def save_extrinsics(sparse_path, w2c_list, img_files, image_suffix):
+    """images.{bin,txt} from [V,4,4] w2c matrices (sfm_utils.py:202-228)."""
+    sparse_path = Path(sparse_path)
+    ims = {}
+    for i, (w2c, img_file) in enumerate(zip(w2c_list, img_files), start=1):
+        w2c = np.asarray(w2c)
+        ims[i] = colmap.ColmapImage(
+            id=i,
+            qvec=colmap.rotmat_to_qvec(w2c[:3, :3]),
+            tvec=np.asarray(w2c[:3, 3]),
+            camera_id=i,
+            name=Path(img_file).stem + image_suffix,
+        )
+    colmap.write_images_binary(ims, sparse_path / "images.bin")
+    colmap.write_images_text(ims, sparse_path / "images.txt")
+
+
+def save_intrinsics(sparse_path, focals, org_wh, model_hw, save_focals=False):
+    """cameras.{bin,txt}: PINHOLE at the ORIGINAL resolution with the model
+    focal scaled up (sfm_utils.py:230-247).
+
+    org_wh / model_hw: one (W, H) / (H, W) shared by all views, or lists
+    with one entry per view (mixed-aspect scenes — each image gets its own
+    camera record; extrinsics already write camera_id per image)."""
+    sparse_path = Path(sparse_path)
+    focals = np.asarray(focals).ravel()
+    n = len(focals)
+    org_whs = (list(org_wh) if isinstance(org_wh[0], (tuple, list,
+                                                      np.ndarray))
+               else [org_wh] * n)
+    model_hws = (list(model_hw) if isinstance(model_hw[0], (tuple, list,
+                                                            np.ndarray))
+                 else [model_hw] * n)
+    cams = {}
+    for i, focal in enumerate(focals, start=1):
+        org_w, org_h = org_whs[i - 1]
+        h, w = model_hws[i - 1]
+        sx, sy = org_w / w, org_h / h
+        cams[i] = colmap.ColmapCamera(
+            id=i, model="PINHOLE", width=int(org_w), height=int(org_h),
+            params=np.array(
+                [focal * sx, focal * sy, org_w / 2.0, org_h / 2.0]),
+        )
+    colmap.write_cameras_binary(cams, sparse_path / "cameras.bin")
+    colmap.write_cameras_text(cams, sparse_path / "cameras.txt")
+    if save_focals:
+        np.save(sparse_path / "non_scaled_focals.npy", np.asarray(focals))
+
+
+def save_points3d(
+    sparse_path, imgs, pts3d, confs, masks=None, use_masks=True,
+    save_all_pts=False, save_txt_path=None, depth_threshold=0.1,
+    max_pts_num=int(150e10),
+):
+    """points3D.ply + confidence sidecars (sfm_utils.py:250-315).
+
+    imgs: [V,H,W,3] in [0,1]; pts3d: [V,H,W,3] (or flattenable); confs:
+    [V,H,W]; masks: [V,H,W] bool KEEP-mask (the reference passes ~co_vis).
+    Returns the number of saved points.
+    """
+    sparse_path = Path(sparse_path)
+    imgs = np.asarray(imgs)
+    pts3d = np.asarray(pts3d).reshape(imgs.shape)
+    confs = np.asarray(confs).reshape(imgs.shape[:-1])
+    np.save(sparse_path / "confidence.npy", confs)
+
+    if use_masks and masks is not None:
+        masks = np.asarray(masks).astype(bool)
+        pts = pts3d[masks].reshape(-1, 3)
+        col = imgs[masks].reshape(-1, 3) * 255.0
+        conf = confs[masks].reshape(-1, 1)
+    else:
+        pts = pts3d.reshape(-1, 3)
+        col = imgs.reshape(-1, 3) * 255.0
+        conf = confs.reshape(-1, 1)
+
+    vanilla_num = pts3d.reshape(-1, 3).shape[0]
+    co_mask_num = pts.shape[0]
+    if pts.shape[0] > max_pts_num:
+        # confidence-weighted downsample (sfm_utils.py:279-296)
+        c = conf.ravel()
+        c = (c - c.min()) / max(c.max() - c.min(), 1e-12) + 1.0
+        w = c / c.sum()
+        idx = np.random.choice(pts.shape[0], max_pts_num, replace=False, p=w)
+        pts, col, conf = pts[idx], col[idx], conf[idx]
+    np.save(sparse_path / "confidence_dsp.npy", conf)
+    ply.store_point_cloud(sparse_path / "points3D.ply", pts, col)
+    if save_all_pts:
+        np.save(sparse_path / "points3D_all.npy", pts3d)
+        np.save(sparse_path / "pointsColor_all.npy", imgs)
+
+    if save_txt_path is not None:
+        with open(Path(save_txt_path) / "pts_num.txt", "a") as f:
+            f.write(f"Depth threshold: {depth_threshold}\n")
+            f.write(f"Vanilla points num: {vanilla_num}\n")
+            f.write(f"Co_Mask DSP points num: {co_mask_num}\n")
+            f.write(f"Co_Mask DSP ratio: {co_mask_num / vanilla_num}\n\n")
+    return pts.shape[0]
 
 
 @dataclasses.dataclass

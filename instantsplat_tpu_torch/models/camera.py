@@ -16,6 +16,14 @@ import torch
 from instantsplat_tpu_torch.utils import transforms as T
 
 
+def fov2focal(fov, pixels):
+    return pixels / (2 * np.tan(fov / 2))
+
+
+def focal2fov(focal, pixels):
+    return 2 * np.arctan(pixels / (2 * focal))
+
+
 @dataclasses.dataclass
 class Camera:
     """One pinhole camera.

@@ -1,6 +1,7 @@
 """Tests that need the CUDA card: the kernels KR/K1/K2 (dense), K3/K4
-(binned) and K5/K6 (tiled) against their plain versions, and the render
-paths on the card. Run them on a machine with a card:
+(binned) and K5/K6 (tiled) against their plain versions, the render
+paths on the card, and stage 1's TINY MASt3R and golden aligner case on
+the card against the CPU. Run them on a machine with a card:
 
     python -m pytest tests/ -m gpu -q
 
@@ -29,7 +30,10 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # full float32, as the package sets on import: a test may have
+    # switched cuDNN's TF32 back on
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -417,3 +421,52 @@ def test_render_and_metrics_on_card(cuda, tmp_path):
     for split, n in (("train", 3), ("test", len(TEST_ANGLES))):
         assert len(list((tmp_path / "model" / split / f"ours_{it}"
                          / "renders").glob("*.png"))) == n
+
+
+def test_mast3r_tiny_on_card(cuda):
+    """The TINY MASt3R with tests/test_mast3r.py's synthetic state dict:
+    every pair through infer_pairs on the card against the CPU, float32
+    (TF32 off) within 1e-5 of the largest magnitude; bf16 on the card
+    under tests/test_mast3r.py's law."""
+    from instantsplat_tpu_torch.models import mast3r
+    from instantsplat_tpu_torch.models.mast3r_infer import infer_pairs
+    from torch_init_cases import TINY, fake_upstream_sd
+
+    sd = fake_upstream_sd(TINY)
+    rng = np.random.default_rng(5)
+    imgs = rng.random((3, 32, 48, 3)).astype(np.float32)
+    pairs = [(0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = mast3r.load_upstream_state_dict(
+            mast3r.MASt3R(TINY).to(dev).eval(), sd)
+        out[dev.type] = infer_pairs(model, imgs, pairs, batch_size=4)
+    for k in ("pred_i", "pred_j", "conf_i", "conf_j", "desc_i", "desc_j"):
+        a, b = getattr(out["cuda"], k), getattr(out["cpu"], k)
+        err = np.abs(a - b).max() / max(np.abs(b).max(), 1.0)
+        assert err <= 1e-5, (k, err)
+    model16 = mast3r.load_upstream_state_dict(
+        mast3r.MASt3R(TINY).to(cuda).eval(), sd).cast(torch.bfloat16)
+    p16 = infer_pairs(model16, imgs, pairs, batch_size=4)
+    d = np.abs(p16.pred_i - out["cpu"].pred_i) / np.abs(
+        out["cpu"].pred_i).max()
+    assert np.quantile(d, 0.999) < 0.05 and d.max() < 0.5
+
+
+def test_aligner_golden_case_on_card(cuda):
+    """The golden aligner case on the card: tests/test_golden.py's
+    tolerances against tests/golden/aligner_case.npz and against the CPU
+    (the gathers' backward adds with atomics on the card)."""
+    from pathlib import Path
+
+    from torch_init_cases import run_aligner_case
+
+    golden = np.load(Path(__file__).parent / "golden" / "aligner_case.npz")
+    got = run_aligner_case(cuda)
+    ref = run_aligner_case("cpu")
+    for want in (golden, ref):
+        np.testing.assert_allclose(got["poses"], want["poses"], rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["focals"], want["focals"], rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
