@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stages 1, 2, 3 and 5 on one NVIDIA card
-and check them.
+"""Drive the PyTorch + CUDA port's stages 1, 2, 3 and 5, and the tools
+around them (init_test_pose, run_eval, run_infer, the viewer, the
+validation sweep, the demo), on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -98,8 +99,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cli.train (--backend pallas) on the oracle output: the loss falls and
    KR, K1 and K2 launch 20 times each.
 
-The last lines are one JSON object {"kernels": [...]} with seven entries,
-the nvidia-smi line, and {"ok": true, "device": {...}}.
+8. The rest of the toolchain, on copies of phase 7's oracle scene (the 15
+   frames, sparse/0 and the oracle init_geo's sparse_3), full width:
+   run_init_test_pose with the oracle pointmaps of all 15 frames (3 train
+   + 12 test, 210 directed pairs, 500 aligner iterations): each test
+   pose's rotation within 1 degree of the truth relative to the first
+   train camera (centre errors and the registration scale printed, not
+   gated: the reference's [R, s*T] transport moves centres by
+   (1 - s) R c), no compositor launch; cli.init_test_pose --ckpt_path
+   random:0 (float32 MASt3R over the 210 pairs): finite test poses, its
+   parts; cli.run_eval --skip_init (stages 2-5 as subprocesses, 200
+   iterations, 50 refinement steps a test view): rc 0, four logs,
+   results.json with a finite PSNR, and no stage ran nvcc again (the
+   libraries under build/ unchanged); cli.run_infer (init_geo
+   --infer_video on three frames with random:0, 20 iterations, the
+   interpolated video's frames); cli.train --enable_viewer
+   --test_iterations 10 20 (20 iterations, --backend pallas) with a
+   loopback client that sends a view request before training starts (its
+   image within 1/255 of render() of the same camera and the initial
+   scene) and four during it (their round trips timed); KR/K1 launched
+   once per iteration, viewer request and sweep render; the sweep's tags in
+   scalars.jsonl; cli.demo: scene.glb and scene.ply (preview.png, or its
+   printed skip). Prints each part's seconds beside the card's name and
+   power limit.
+
+The last lines are one JSON object {"kernels": [...]} with seven entries
+(each with `launches`, from its own path's run in phase 4, and
+`launches_phase8`, from phase 8's in-process runs: its subprocess stages
+count in their own processes), the nvidia-smi line, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -181,6 +209,22 @@ ALIGN_POSE_ATOL = 1e-3
 ORACLE_NOISE = 0.01  # on the oracle pointmaps (the cameras stand 4 away)
 SCENE_SCALE = 4.0  # the cameras' distance from the surface's centre
 STAGE1_TRAIN_ITERS = 20
+# Phase 8 (the rest of the toolchain). init_test_pose over all 15 frames:
+# 3 train + 12 test images, 210 directed pairs, the reference's 500
+# aligner iterations
+ITP_ALIGN_ITERS = 500
+# run_eval's stages 2-5 and run_infer, depth cut to stay in the budget
+EVAL_TRAIN_ITERS = 200
+EVAL_REFINE_ITERS = 50
+INFER_TRAIN_ITERS = 20
+# cli.train with the viewer and the validation sweep
+VIEWER_ITERS = 20
+VIEWER_LOG_EVERY = 10
+VIEWER_TEST_ITERS = (10, 20)
+# view requests the loopback client sends: the first before training
+# starts (its image is checked), the others one after another during it
+# (their round trips are timed; the first of them meets the warm-up step)
+VIEWER_REQUESTS = 5
 
 
 def fail(msg: str):
@@ -1403,7 +1447,7 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
                       n_views=3, image_size=max(H, W),
                       niter=ALIGN_ITERS, focal_avg=True,
                       conf_aware_ranking=True, co_vis_dsp=True,
-                      max_pts=N_POINTS, device=dev)
+                      max_pts=N_POINTS, save_all_pts=True, device=dev)
     log(f"init_geo oracle on the card: {time.time() - t0:.2f} s, align "
         f"{al.timings['align'] * 1e3 / ALIGN_ITERS:.2f} ms per iteration")
     focal = float(al.get_focals()[0])
@@ -1492,6 +1536,365 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
     if len(cams) != 3:
         fail("init_geo oracle: sparse_3/0 does not hold three cameras")
     log(f"phase 7: {time.time() - t_phase:.1f} s")
+    return copies["oracle"]
+
+
+def test_frames():
+    """The dataset's test frames in split_train_test's order."""
+    return [k for k in range(len(FRAME_ANGLES)) if k not in TRAIN_FRAMES]
+
+
+def judge_test_poses(tag, sparse3: Path, test_c2w):
+    """Rotation errors (gated, 1 degree) and centre errors (printed) of
+    transported test poses against the truth, both relative to the first
+    train camera of sparse3/0 and the centres scaled onto the truth's, as
+    phase 7 judges; -> max rotation error."""
+    import numpy as np
+
+    from instantsplat_tpu_torch.data import colmap
+    from instantsplat_tpu_torch.eval.pose_metrics import rotation_error
+
+    ims = sorted(colmap.read_images_text(sparse3 / "0" / "images.txt")
+                 .values(), key=lambda im: im.name)
+    est = ims[0].w2c @ np.asarray(test_c2w)  # in the first train camera
+    gt = frame_w2c(TRAIN_FRAMES[0]) @ np.stack(
+        [np.linalg.inv(frame_w2c(k)) for k in test_frames()])
+    # stage 1's frame has its own scale: the centres' spread (the first
+    # camera, at the origin, included) is scaled onto the truth's, as
+    # phase 7 does
+    def spread(c):
+        c = np.concatenate([np.zeros((1, 3)), c])
+        return np.linalg.norm(c[:, None] - c[None], axis=-1).sum()
+
+    est[:, :3, 3] *= spread(gt[:, :3, 3]) / spread(est[:, :3, 3])
+    rot = [np.degrees(rotation_error(g[:3, :3].T @ e[:3, :3]))
+           for g, e in zip(gt, est)]
+    dist = [float(np.linalg.norm(g[:3, 3] - e[:3, 3]) / SCENE_SCALE)
+            for g, e in zip(gt, est)]
+    log(f"{tag}: relative to the first train camera, rotation errors "
+        + ", ".join(f"{r:.4f}" for r in rot) + " degrees (limit 1); centre "
+        "errors " + ", ".join(f"{100 * d:.2f}" for d in dist)
+        + "% of the scene scale after the scale fit (not checked: the "
+        "[R, s*T] transport moves them by (1 - s) R c)")
+    if not max(rot) < 1.0:
+        fail(f"{tag}: a test pose's rotation is off the truth")
+    return max(rot)
+
+
+def viewer_client(port, h, w, view_w2c, result):
+    """Thread body: connect to the trainer's viewer (retrying until it
+    listens) and send one SIBR request for `view_w2c` before training
+    starts, whose image it keeps; then, on the same connection,
+    VIEWER_REQUESTS - 1 more during training, one after another, whose
+    round trips it times."""
+    import json
+    import socket
+
+    import numpy as np
+
+    view = np.array(view_w2c, np.float64).T  # stored transposed
+    view[:, 1:3] *= -1  # and y/z flipped, as the SIBR viewer sends it
+    msg = dict(resolution_x=w, resolution_y=h, train=False, fov_y=0.8,
+               fov_x=1.0, z_near=0.01, z_far=100.0, shs_python=False,
+               rot_scale_python=False, keep_alive=True, scaling_modifier=1.0,
+               view_matrix=view.flatten().tolist(),
+               view_projection_matrix=view.flatten().tolist())
+    payload = json.dumps(msg).encode("utf-8")
+    t0 = time.time()
+    while True:
+        try:
+            conn = socket.create_connection(("127.0.0.1", port), timeout=120)
+            break
+        except OSError:
+            if time.time() - t0 > 120:
+                result["error"] = "the viewer never listened"
+                return
+            time.sleep(0.01)
+
+    def ask():
+        conn.sendall(len(payload).to_bytes(4, "little") + payload)
+        buf = b""
+        while len(buf) < h * w * 3:
+            chunk = conn.recv(h * w * 3 - len(buf))
+            if not chunk:
+                raise ConnectionError("the viewer closed the connection")
+            buf += chunk
+        n = int.from_bytes(conn.recv(4), "little")
+        result["verify"] = conn.recv(n).decode("ascii")
+        return np.frombuffer(buf, np.uint8).reshape(h, w, 3)
+
+    try:
+        result["img"] = ask()
+        result["round_trip_s"] = []
+        for _ in range(VIEWER_REQUESTS - 1):
+            t_sent = time.time()
+            ask()
+            result["round_trip_s"].append(time.time() - t_sent)
+    except OSError as e:
+        result["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        conn.close()
+
+
+def stage_tools(oracle: Path, tmp: Path, dev, smi: str):
+    """Phase 8: init_test_pose, run_eval, run_infer, the viewer and the
+    validation sweep, and the demo, on copies of phase 7's oracle scene
+    (the 15 frames, sparse/0 and the oracle init_geo's sparse_3).
+    -> {kernel: launches} summed over phase 8's in-process runs."""
+    import os
+    import shutil
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.cli import demo as demo_cli
+    from instantsplat_tpu_torch.cli import init_test_pose as itp_cli
+    from instantsplat_tpu_torch.cli import run_eval as run_eval_cli
+    from instantsplat_tpu_torch.cli import run_infer as run_infer_cli
+    from instantsplat_tpu_torch.cli import train as train_cli
+    from instantsplat_tpu_torch.data import colmap
+    from instantsplat_tpu_torch.models.camera import Camera, fov2focal
+    from instantsplat_tpu_torch.ops import cuda_build
+    from instantsplat_tpu_torch.pipelines.init_test_pose_pipeline import (
+        run_init_test_pose)
+    from instantsplat_tpu_torch.render.driver import render
+
+    t_phase = time.time()
+    seconds = {}
+    total = dict.fromkeys(kernel_table(), 0)
+
+    def copy(name):
+        dst = tmp / f"p8_{name}"
+        shutil.copytree(oracle, dst)
+        return dst
+
+    # ---- 1. oracle init_test_pose: 15 frames, 210 pairs, in-process ----
+    scene = copy("itp_oracle")
+    frames = list(TRAIN_FRAMES) + test_frames()
+    oracle_fn = oracle_pointmap_fn(frames, 0.9 * W)
+    for k in kernel_table().values():
+        k.launches = 0
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    poses = run_init_test_pose(scene, tmp / "p8_itp_oracle_out", oracle_fn,
+                               image_size=max(H, W), niter=ITP_ALIGN_ITERS,
+                               device=dev, timings=timings)
+    torch.cuda.synchronize()
+    seconds["init_test_pose oracle"] = time.time() - t0
+    launches = {name: k.launches for name, k in kernel_table().items()}
+    log(f"init_test_pose oracle [{smi}]: {seconds['init_test_pose oracle']:.2f}"
+        f" s for 15 images, 210 pairs: pointmaps {timings['inference']:.2f} s"
+        f" (numpy), init_mst {timings['init_mst']:.2f} s, align "
+        f"{timings['align']:.2f} s = "
+        f"{timings['align'] / ITP_ALIGN_ITERS * 1e3:.2f} ms per iteration "
+        f"over {ITP_ALIGN_ITERS}, register + write {timings['write']:.2f} s;"
+        f" registration scale s = {timings['scale']:.6f}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if any(launches.values()):
+        fail(f"init_test_pose launched compositor kernels: {launches}")
+    if poses.shape != (len(test_frames()), 4, 4) or not np.isfinite(
+            poses).all():
+        fail("init_test_pose oracle: non-finite or missing test poses")
+    judge_test_poses("init_test_pose oracle", scene / "sparse_3", poses)
+    del oracle_fn
+    torch.cuda.empty_cache()
+
+    # ---- 2. cli.init_test_pose with random:0, as a user runs it ----
+    scene = copy("itp_cli")
+    torch.cuda.reset_peak_memory_stats()
+    timings, _, secs, launches, _ = run_cli(itp_cli.main, [
+        "-s", scene, "-m", tmp / "p8_itp_cli_out", "--n_views", 3,
+        "--ckpt_path", "random:0", "--focal_avg", "--niter",
+        ITP_ALIGN_ITERS])
+    seconds["cli.init_test_pose"] = secs
+    if any(launches.values()):
+        fail(f"cli.init_test_pose launched compositor kernels: {launches}")
+    ims = colmap.read_images_text(scene / "sparse_3" / "1" / "images.txt")
+    if len(ims) != len(test_frames()) or not all(
+            np.isfinite(im.w2c).all() for im in ims.values()):
+        fail("cli.init_test_pose: sparse_3/1 lacks finite test poses")
+    parts = {k: v for k, v in timings.items() if k != "scale"}
+    log(f"cli.init_test_pose [{smi}]: {secs:.2f} s (15 views {W}x{H}, "
+        f"float32, random:0, 210 pairs): model build "
+        f"{secs - sum(parts.values()):.2f} s, load {parts['load']:.2f} s, "
+        f"inference {parts['inference']:.2f} s, init_mst "
+        f"{parts['init_mst']:.2f} s, align {parts['align']:.2f} s = "
+        f"{parts['align'] / ITP_ALIGN_ITERS * 1e3:.2f} ms per iteration, "
+        f"register + write {parts['write']:.2f} s; s = "
+        f"{timings['scale']:.4g}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+
+    # the stages run in subprocesses: the package must import from there
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+
+    def run_tool(main, argv):
+        """-> (exit code, seconds, {log name: stage seconds}) of an
+        orchestrator whose stages run as subprocesses."""
+        import contextlib
+        import re
+
+        tee = _Tee(sys.stdout)
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(tee):
+                main([str(a) for a in argv])
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+        stages = {m.group(2): float(m.group(1)) for m in re.finditer(
+            r"-> \w+ \(([0-9.]+)s, log: .*/([0-9a-z_]+)\.log\)",
+            "".join(tee.text))}
+        return rc, time.time() - t0, stages
+
+    # ---- 3. cli.run_eval --skip_init: stages 2-5 as subprocesses ----
+    data = tmp / "p8_eval_data"
+    shutil.copytree(oracle, data / "scene")
+    libs = sorted(cuda_build.BUILD_ROOT.rglob("*.so"))
+    stamps = {p: p.stat().st_mtime_ns for p in libs}
+    rc, secs, stage_s = run_tool(run_eval_cli.main, [
+        "--data", data, "--out", tmp / "p8_eval_out", "--scenes", "scene",
+        "--iterations", EVAL_TRAIN_ITERS, "--optim_test_pose_iter",
+        EVAL_REFINE_ITERS, "--skip_init"])
+    seconds["cli.run_eval"] = secs
+    out = tmp / "p8_eval_out" / "scene" / "3_views"
+    logs = sorted((out / "logs").glob("*.log"))
+    if rc != 0:
+        for log_path in logs:
+            log(f"run_eval {log_path.name}: ...{log_path.read_text()[-2000:]}")
+        fail(f"run_eval exited {rc}")
+    names = [p.stem for p in logs]
+    if names != ["02_train", "03_render_train", "04_render_test",
+                 "05_metrics"] or sorted(stage_s) != names:
+        fail(f"run_eval: logs {names}, stages timed {sorted(stage_s)}")
+    res = json.loads((out / "results.json").read_text())
+    psnr = res[f"ours_{EVAL_TRAIN_ITERS}"]["PSNR"]
+    if not math.isfinite(psnr):
+        fail("run_eval: PSNR is not finite")
+    if sorted(cuda_build.BUILD_ROOT.rglob("*.so")) != libs or any(
+            p.stat().st_mtime_ns != t for p, t in stamps.items()):
+        fail("run_eval: a stage built the kernels again (the build key "
+             "differs between processes)")
+    fps = (out / "total_fps.json").read_text().split()
+    log(f"cli.run_eval --skip_init [{smi}]: rc 0 in {secs:.1f} s; stages 2-5"
+        " in subprocesses (" + ", ".join(
+            f"{k} {v:.1f} s" for k, v in stage_s.items())
+        + f"), {EVAL_TRAIN_ITERS} iterations, "
+        f"{EVAL_REFINE_ITERS} refinement steps a test view; results "
+        f"{res}; FPS {fps}; no stage ran nvcc")
+
+    # ---- 4. cli.run_infer: init_geo --infer_video, train, the video ----
+    data = tmp / "p8_infer_data"
+    (data / "scene" / "images").mkdir(parents=True)
+    for k in TRAIN_FRAMES:
+        shutil.copy(oracle / "images" / f"{k:03d}.png",
+                    data / "scene" / "images")
+    rc, secs, stage_s = run_tool(run_infer_cli.main, [
+        "--data", data, "--out", tmp / "p8_infer_out", "--scenes", "scene",
+        "--n_views", 3, "--iterations", INFER_TRAIN_ITERS, "--ckpt_path",
+        "random:0"])
+    seconds["cli.run_infer"] = secs
+    out = tmp / "p8_infer_out" / "scene" / "3_views"
+    if rc != 0:
+        for log_path in sorted((out / "logs").glob("*.log")):
+            log(f"run_infer {log_path.name}: ..."
+                f"{log_path.read_text()[-2000:]}")
+        fail(f"run_infer exited {rc}")
+    frames_out = sorted((out / "interp" / f"ours_{INFER_TRAIN_ITERS}"
+                         / "renders").glob("*.png"))
+    if not frames_out:
+        fail("run_infer: no video frames written")
+    log(f"cli.run_infer [{smi}]: rc 0 in {secs:.1f} s (3 frames, random:0, "
+        f"{INFER_TRAIN_ITERS} iterations; " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in stage_s.items())
+        + f"); {len(frames_out)} interpolated frames written")
+
+    # ---- 5. cli.train with the viewer and the validation sweep ----
+    scene = copy("viewer")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    vh, vw = H, W
+    view_w2c = frame_w2c(test_frames()[5])
+    result = {}
+    client = threading.Thread(target=viewer_client,
+                              args=(port, vh, vw, view_w2c, result))
+    client.start()
+    (_, history), _, secs, launches, _ = run_cli(train_cli.main, [
+        "-s", scene, "-m", tmp / "p8_viewer_model", "--n_views", 3,
+        "--iterations", VIEWER_ITERS, "--log_every", VIEWER_LOG_EVERY,
+        "--test_iterations", *VIEWER_TEST_ITERS, "--backend", "pallas",
+        "--enable_viewer", "--port", port, "--quiet"])
+    client.join(timeout=120)
+    if client.is_alive():
+        fail("viewer: the client thread did not finish")
+    seconds["cli.train viewer"] = secs
+    for k, v in launches.items():
+        total[k] += v
+    if len(result.get("round_trip_s", ())) != VIEWER_REQUESTS - 1 or \
+            result.get("verify") != "training":
+        fail(f"viewer: not every request answered ({result.get('error')})")
+    params, _ = initial_params(scene, dev)
+    cam = Camera.create(view_w2c[:3, :3], view_w2c[:3, 3],
+                        fx=fov2focal(1.0, vw), fy=fov2focal(0.8, vh),
+                        height=vh, width=vw, device=dev)
+    with torch.no_grad():
+        want = render(params, cam, backend="pallas").render.cpu().numpy()
+    diff = float(np.abs(result["img"] / 255.0 - want).max())
+    sweeps = len(VIEWER_TEST_ITERS) * 3
+    trips = ", ".join(f"{t * 1e3:.1f}" for t in result["round_trip_s"])
+    log(f"viewer [{smi}]: {vw}x{vh} images; requests sent during training "
+        f"answered in {trips} ms (each at the trainer's next iteration: a "
+        f"step, a render and the transfer); the first image against render() "
+        f"of the initial scene: max |d| {diff:.2e} (limit 1/255); cli.train "
+        f"{VIEWER_ITERS} iterations in {secs:.1f} s with the sweep at "
+        f"{VIEWER_TEST_ITERS}; launches {launches}")
+    if not diff <= 1 / 255:
+        fail("viewer: the served image differs from render()")
+    want_launches = {"KR": VIEWER_ITERS + VIEWER_REQUESTS + sweeps,
+                     "K1": VIEWER_ITERS + VIEWER_REQUESTS + sweeps,
+                     "K2": VIEWER_ITERS,
+                     "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    if launches != want_launches:
+        fail(f"viewer run: launches {launches} != {want_launches} (the "
+             "iterations, the viewer's renders and the sweep's)")
+    rows = [json.loads(ln) for ln in (tmp / "p8_viewer_model"
+                                      / "scalars.jsonl").read_text()
+            .splitlines()]
+    sweep = sorted((r["step"], r["tag"]) for r in rows
+                   if "viewpoint" in r["tag"])
+    want_sweep = sorted((it, f"train/loss_viewpoint-{m}")
+                        for it in VIEWER_TEST_ITERS for m in ("l1", "psnr"))
+    if sweep != want_sweep:
+        fail(f"validation sweep: scalars {sweep} != {want_sweep}")
+    log("validation sweep: " + ", ".join(
+        f"{r['tag']}@{r['step']} {r['value']:.5f}" for r in rows
+        if "viewpoint" in r["tag"]))
+    del params
+
+    # ---- 6. cli.demo on the oracle scene ----
+    scene = copy("demo")
+    _, text, secs, launches, _ = run_cli(demo_cli.main, [
+        "-s", scene, "--n_views", 3, "--outdir", tmp / "p8_demo"])
+    seconds["cli.demo"] = secs
+    if any(launches.values()):
+        fail(f"demo launched compositor kernels: {launches}")
+    for f in ("scene.glb", "scene.ply"):
+        if not (tmp / "p8_demo" / f).is_file():
+            fail(f"demo: {f} missing")
+    skipped = [ln for ln in text.splitlines() if "skipped" in ln]
+    log(f"cli.demo: {secs:.2f} s; scene.glb "
+        f"{(tmp / 'p8_demo' / 'scene.glb').stat().st_size} B, scene.ply "
+        f"{(tmp / 'p8_demo' / 'scene.ply').stat().st_size} B"
+        + (f"; {skipped[0].strip()}" if skipped else "; preview.png written"))
+    log(f"phase 8 [{smi}]: {time.time() - t_phase:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return total
 
 
 def main():
@@ -1648,7 +2051,12 @@ def main():
         stages_3_and_5(scene, Path(tmp) / "dense", dev, smi)
 
         # ---- phase 7: stage 1 on copies of the dataset -------------------
-        stage_1(scene, Path(tmp), dev, smi)
+        oracle = stage_1(scene, Path(tmp), dev, smi)
+
+        # ---- phase 8: the rest of the toolchain on the oracle scene ------
+        phase8 = stage_tools(oracle, Path(tmp), dev, smi)
+        for row in rows:
+            row["launches_phase8"] = phase8[row["name"].split()[0]]
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -11,7 +11,9 @@ the binned and tiled list compositors (`csrc/rasterize_lists.cu`,
 Ported so far: stage 1 (`cli.init_geo`: MASt3R pair inference, the
 global aligner, the `sparse_{n}` writer), stage 2 (`cli.train`, the joint
 Gaussian + camera-pose optimisation, with every rasterizer backend and
-the `auto` probe), stage 3 (`cli.render`) and stage 5 (`cli.metrics`).
+the `auto` probe, the validation sweep and the live viewer), stage 3
+(`cli.render`, or `cli.init_test_pose`), stage 5 (`cli.metrics`), the
+orchestration (`cli.run_eval`, `cli.run_infer`) and `cli.demo`.
 
 Entry points take an explicit `device` and default to "cuda". Asking for
 CUDA without a card raises; nothing falls back to the CPU.

@@ -5,6 +5,9 @@ instantsplat_tpu/cli/train.py).
       --n_views 3 --iterations 1000 --pp_optimizer --optim_pose
 
 Runs on CUDA by default; `--device cpu` runs the plain PyTorch path.
+`--test_iterations` runs the validation sweep over the train views at
+those (logged) iterations; `--enable_viewer` serves live renders to a
+SIBR viewer on `--ip`/`--port` (render/network_gui.py).
 """
 
 from __future__ import annotations
@@ -28,15 +31,34 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--save_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
                         default=[])
+    parser.add_argument("--test_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--log_every", type=int, default=100)
+    # renders sharded over several devices: not ported yet
+    parser.add_argument("--n_devices", type=int, default=0)
+    parser.add_argument("--shard_axis", choices=["pixels", "gaussians"],
+                        default="pixels")
+    # SIBR viewer (reference train.py:310: --disable_viewer defaults to
+    # True; --enable_viewer serves live renders on --ip/--port)
+    parser.add_argument("--enable_viewer", action="store_true")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--quiet", action="store_true")
+    # accepted for drop-in compatibility with reference train.py:305-310
+    # and the JAX CLI, which ignore them too: documented no-ops
+    parser.add_argument("--disable_viewer", action="store_true", default=True)
+    parser.add_argument("--debug_from", type=int, default=-1)
+    parser.add_argument("--detect_anomaly", action="store_true")
     return parser
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.n_devices:
+        raise NotImplementedError(
+            "--n_devices: renders sharded over several devices are not yet "
+            "ported; run with --n_devices 0 (one device)")
     model = C.extract_group(args, C.ModelParams)
     opt = C.make_opt_config(args)
     trainer = TrainerConfig(iterations=args.iterations,
@@ -48,13 +70,27 @@ def main(argv=None):
             print(f"[train] iter {it}: loss={m['loss']:.5f} "
                   f"psnr={m['psnr']:.2f}", flush=True)
 
-    params, history = run_training(
-        model, opt, trainer,
-        save_iterations=args.save_iterations or None,
-        checkpoint_iterations=args.checkpoint_iterations,
-        progress_cb=progress,
-        start_checkpoint=args.start_checkpoint,
-        device=args.device)
+    viewer = None
+    if args.enable_viewer:
+        from instantsplat_tpu_torch.render.network_gui import NetworkGUI
+
+        viewer = NetworkGUI()
+        viewer.init(args.ip, args.port)
+        print(f"[train] viewer listening on {args.ip}:{args.port}",
+              flush=True)
+    try:
+        params, history = run_training(
+            model, opt, trainer,
+            save_iterations=args.save_iterations or None,
+            checkpoint_iterations=args.checkpoint_iterations,
+            progress_cb=progress,
+            start_checkpoint=args.start_checkpoint,
+            testing_iterations=args.test_iterations,
+            viewer=viewer,
+            device=args.device)
+    finally:
+        if viewer is not None:
+            viewer.close()
     print(f"[train] done -> {model.model_path}")
     return params, history
 

@@ -497,11 +497,23 @@ class GlobalAligner:
                 & (gx[None] < self.shapes[:, 1, None, None]))
 
     def mask_sky(self, images):
-        """Zero sky-pixel confidence (reference base_opt.py:288-295). Not
-        ported yet: it needs eval.viz.segment_sky."""
-        raise NotImplementedError(
-            "mask_sky needs eval.viz.segment_sky, which the port does not "
-            "have yet")
+        """Zero sky-pixel confidence (reference base_opt.py:288-295):
+        returns a deep copy of this aligner whose im_conf is zeroed
+        wherever eval.viz.segment_sky fires on the corresponding image.
+
+        `images`: [V] sequence of [h, w, 3] RGB rasters in [0, 1] floats
+        or uint8 (the aligner keeps only the predictions, so the caller
+        passes them). On a mixed-aspect canvas a raster smaller than the
+        canvas masks only its true extent."""
+        import copy
+
+        from instantsplat_tpu_torch.eval.viz import segment_sky
+
+        res = copy.deepcopy(self)
+        for i in range(self.n_imgs):
+            sky = segment_sky(np.asarray(images[i]))
+            res.im_conf[i][:sky.shape[0], :sky.shape[1]][sky] = 0.0
+        return res
 
     def get_pts3d(self):
         """[V, H, W, 3] world-space pointmaps."""

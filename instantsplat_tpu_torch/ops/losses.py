@@ -1,12 +1,12 @@
-"""Photometric losses (port of instantsplat_tpu/ops/losses.py, the parts
-stages 2 and 3 use): loss = (1 - lambda_dssim) * L1 + lambda_dssim *
-(1 - SSIM) for training; the masked L1 of test-time pose refinement."""
+"""Photometric losses (port of instantsplat_tpu/ops/losses.py): loss =
+(1 - lambda_dssim) * L1 + lambda_dssim * (1 - SSIM) for training, its
+masked form, and the masked L1 of test-time pose refinement."""
 
 from __future__ import annotations
 
 import torch
 
-from instantsplat_tpu_torch.ops.ssim import ssim
+from instantsplat_tpu_torch.ops.ssim import masked_ssim, ssim
 
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -35,6 +35,16 @@ def photometric_loss(pred: torch.Tensor, gt: torch.Tensor,
     """-> (loss, {"l1", "ssim"})."""
     l1 = l1_loss(pred, gt)
     s = ssim(pred, gt)
+    loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - s)
+    return loss, {"l1": l1, "ssim": s}
+
+
+def masked_photometric_loss(pred: torch.Tensor, gt: torch.Tensor,
+                            mask: torch.Tensor, lambda_dssim: float = 0.2):
+    """photometric_loss over the pixels where `mask` is true ([H, W]).
+    -> (loss, {"l1", "ssim"})."""
+    l1 = masked_l1_loss(pred, gt, mask)
+    s = masked_ssim(pred, gt, mask)
     loss = (1.0 - lambda_dssim) * l1 + lambda_dssim * (1.0 - s)
     return loss, {"l1": l1, "ssim": s}
 

@@ -41,13 +41,10 @@ def _blur(img: torch.Tensor, win) -> torch.Tensor:
     return _blur_axis(_blur_axis(img, win, 1), win, 2)
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-         sigma: float = 1.5, c1: float = 0.01**2,
-         c2: float = 0.03**2) -> torch.Tensor:
-    """Mean SSIM of two 3-D images, [H, W, C] (channels last, detected as
-    in the JAX version) or [C, H, W]."""
-    if img1.ndim != 3:
-        raise ValueError(f"expected 3D image, got {tuple(img1.shape)}")
+def _ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int,
+              sigma: float, c1: float, c2: float) -> torch.Tensor:
+    """[C, H, W] SSIM map of two 3-D images, [H, W, C] (channels last,
+    detected as in the JAX version) or [C, H, W]."""
     if img1.shape[-1] in (1, 3) and img1.shape[0] not in (1, 3):
         img1 = img1.permute(2, 0, 1)
         img2 = img2.permute(2, 0, 1)
@@ -58,6 +55,27 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     sigma1_sq = _blur(img1 * img1, win) - mu1_sq
     sigma2_sq = _blur(img2 * img2, win) - mu2_sq
     sigma12 = _blur(img1 * img2, win) - mu1_mu2
-    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+    return ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
-    return ssim_map.mean()
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         sigma: float = 1.5, c1: float = 0.01**2,
+         c2: float = 0.03**2) -> torch.Tensor:
+    """Mean SSIM of two 3-D images, [H, W, C] (channels last, detected as
+    in the JAX version) or [C, H, W]."""
+    if img1.ndim != 3:
+        raise ValueError(f"expected 3D image, got {tuple(img1.shape)}")
+    return _ssim_map(img1, img2, window_size, sigma, c1, c2).mean()
+
+
+def masked_ssim(img1: torch.Tensor, img2: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """SSIM averaged over the pixels where `mask` ([H, W], bool or float)
+    is true, every channel counted: the SSIM map is multiplied by the mask
+    and divided by max(mask sum x channels, 1)."""
+    ssim_map = _ssim_map(img1, img2, 11, 1.5, 0.01**2, 0.03**2)
+    m = mask[None].to(ssim_map.dtype)
+    n_ch = ssim_map.shape[0]
+    return torch.sum(ssim_map * m) / torch.clamp(torch.sum(m) * n_ch,
+                                                 min=1.0)

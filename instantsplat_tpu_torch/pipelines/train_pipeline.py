@@ -40,7 +40,11 @@ from instantsplat_tpu_torch.opt.gaussian_opt import (
 from instantsplat_tpu_torch.pipelines.config import ModelParams, save_cfg_args
 from instantsplat_tpu_torch.pipelines.trainer import TrainerConfig, train_joint
 from instantsplat_tpu_torch.utils import transforms as T
-from instantsplat_tpu_torch.utils.logging import ScalarLogger, training_report
+from instantsplat_tpu_torch.utils.logging import (
+    ScalarLogger,
+    make_eval_fn,
+    training_report,
+)
 
 
 def poses_7_to_w2c(pose7) -> np.ndarray:
@@ -108,9 +112,13 @@ def _write_cameras_json(model_path: Path, info):
 def run_training(model: ModelParams, opt: OptimizationConfig,
                  trainer: TrainerConfig, save_iterations=None,
                  checkpoint_iterations=(), progress_cb=None,
-                 start_checkpoint=None, device="cuda"):
+                 start_checkpoint=None, testing_iterations=(), viewer=None,
+                 device="cuda"):
     """Returns (params, history). Writes the artifact tree under
-    model.model_path."""
+    model.model_path. At the logged iterations listed in
+    `testing_iterations` the validation sweep renders every train view
+    with its learnable pose (scalars `train/loss_viewpoint-{l1,psnr}`);
+    `viewer` (a NetworkGUI) is served live during training."""
     dev = resolve_device(device)
     model_path = Path(model.model_path)
     model_path.mkdir(parents=True, exist_ok=True)
@@ -161,9 +169,13 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
               f"at iteration {first_iter}")
 
     logger = ScalarLogger(model_path)
+    params_ref = [params]
+    eval_fn = make_eval_fn(params_ref, {"train": info.cameras},
+                           backend=trainer.backend)
 
     def _cb(it, m):
-        training_report(logger, it, m)
+        training_report(logger, it, m, testing_iterations=testing_iterations,
+                        eval_fn=eval_fn)
         if progress_cb is not None:
             progress_cb(it, m)
 
@@ -172,7 +184,8 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
         params, opt_state, history = train_joint(
             params, info.cameras, opt_cfg=opt, trainer_cfg=trainer,
             spatial_lr_scale=info.nerf_radius, confidence_lr=confidence_lr,
-            progress_cb=_cb, opt_state=opt_state0, first_iter=first_iter)
+            progress_cb=_cb, opt_state=opt_state0, first_iter=first_iter,
+            live_ref=params_ref, viewer=viewer)
     finally:
         logger.close()
     scene_io.save_time(model_path, "[2] train_joint", time.time() - t0)

@@ -14,7 +14,8 @@ against a capacity backend sized for the scene, and its periodic re-probe
 (see train_joint). Left out as TPU workarounds: lax.scan blocks (here a
 "block" is just a run of iterations on one backend) and the dispatch
 governor that kept each scan under a runtime deadline; not ported yet: the
-device mesh and the viewer.
+device mesh. With a `viewer` (render/network_gui.NetworkGUI), every
+iteration first answers at most one pending viewer request (_serve_viewer).
 """
 
 from __future__ import annotations
@@ -166,8 +167,15 @@ def train_joint(
     progress_cb: Optional[Callable[[int, dict], None]] = None,
     opt_state: Optional[AdamState] = None,
     first_iter: int = 0,
+    live_ref: Optional[list] = None,
+    viewer=None,
 ):
     """Run the joint optimisation; `params` is updated in place.
+
+    live_ref: a 1-element list set to the latest params before each
+    progress_cb call (the validation sweep renders what it holds).
+    viewer: a NetworkGUI whose pending request, if any, is answered with
+    a render of the current params before each iteration's step.
 
     Returns (params, opt_state, history), history being a list of
     (iteration, metrics dict) at log_every cadence plus the final step.
@@ -267,6 +275,8 @@ def train_joint(
             _sync(dev)
         t_blk = _clock()
         for i in range(it, end + 1):
+            if viewer is not None:
+                _serve_viewer(viewer, params, name, trainer_cfg.chunk)
             view = next_view()
             active_sh = min(i // interval, params.max_sh_degree)
             metrics = train_step(params, cameras[view], optimizer, opt_state,
@@ -304,7 +314,29 @@ def train_joint(
             m = {k: float(v) for k, v in metrics.items()}
             m["elapsed_s"] = time.time() - t0
             history.append((end, m))
+            if live_ref is not None:
+                live_ref[0] = params
             if progress_cb is not None:
                 progress_cb(end, m)
         it = end + 1
     return params, opt_state, history
+
+
+def _serve_viewer(viewer, params: GaussianModel, backend: str, chunk: int):
+    """Answer at most one pending viewer request with a render of the
+    current params on `backend`, under no_grad. A viewer error drops the
+    connection with a warning and never stops training."""
+    try:
+        req = viewer.poll()
+        if req is None:
+            return
+        with torch.no_grad():
+            out = render(params, req.camera(params.xyz.device),
+                         scale_modifier=req.scaling_modifier, chunk=chunk,
+                         backend=backend)
+        viewer.send_image(out.render.cpu().numpy(), verify="training")
+    except Exception as e:  # noqa: BLE001 - the viewer must never kill
+        # training; the dropped connection is made visible
+        _log.warning("viewer request failed (%s: %s); connection dropped",
+                     type(e).__name__, e, exc_info=True)
+        viewer.conn = None

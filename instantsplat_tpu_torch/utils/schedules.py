@@ -1,5 +1,7 @@
-"""Learning-rate schedules (port of instantsplat_tpu/utils/schedules.py,
-`expon_lr` only — the one stage 2 uses)."""
+"""Learning-rate schedules (port of instantsplat_tpu/utils/schedules.py):
+`expon_lr`, the log-linear schedule of stage 2's xyz and pose rates, and
+the global aligner's `cosine_lr` and `linear_lr`. Every schedule is
+evaluated in float32 like the JAX version."""
 
 from __future__ import annotations
 
@@ -37,5 +39,29 @@ def expon_lr(
                              + torch.log(torch.tensor(lr_final, **f32)) * t)
         lr = delay_rate * log_lerp
         return torch.where(step < 0, torch.zeros_like(lr), lr)
+
+    return helper
+
+
+def cosine_lr(lr_base: float, lr_min: float, max_steps: int):
+    """Cosine decay from lr_base to lr_min over max_steps (global aligner).
+    Returns step -> float32 0-dim tensor."""
+
+    def helper(step) -> torch.Tensor:
+        t = torch.clamp(torch.as_tensor(step, dtype=torch.float32)
+                        / max(max_steps - 1, 1), 0.0, 1.0)
+        return lr_min + (lr_base - lr_min) * (1 + torch.cos(t * math.pi)) / 2
+
+    return helper
+
+
+def linear_lr(lr_base: float, lr_min: float, max_steps: int):
+    """Linear decay from lr_base to lr_min (global aligner alternative).
+    Returns step -> float32 0-dim tensor."""
+
+    def helper(step) -> torch.Tensor:
+        t = torch.clamp(torch.as_tensor(step, dtype=torch.float32)
+                        / max(max_steps - 1, 1), 0.0, 1.0)
+        return lr_base * (1 - t) + lr_min * t
 
     return helper

@@ -8,7 +8,7 @@ package's, on the CPU:
   JAX's aligner on the same inputs;
 - `init_mst` alone gives JAX's initial parameters and MST (same host
   code: within 1e-6); a mixed-aspect canvas case through init_mst and
-  align; `clean_pointcloud` and `pair_scene_fast`;
+  align; `clean_pointcloud`, `pair_scene_fast` and `mask_sky`;
 - `pairs`, `geometry`, `pnp` (same seeds, same poses) and `covis` (equal
   masks) on seeded inputs; the new `utils/transforms` functions within
   1e-6 and `models/camera`'s focal/fov conversions exactly.
@@ -127,8 +127,15 @@ def test_clean_pointcloud_and_pair_scene_fast_match_jax():
     for g, w in zip(al.pair_scene_fast(two),
                     jal.pair_scene_fast(_jax_preds(two))):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="segment_sky"):
-        a.mask_sky([np.zeros((24, 32, 3))] * 3)
+    # mask_sky (eval/viz.segment_sky) zeroes what JAX's zeroes, on a copy
+    imgs = np.zeros((3, 24, 32, 3), np.float32)
+    imgs[:, :6] = [0.2, 0.4, 0.9]
+    before = a.im_conf.copy()
+    got = a.mask_sky(imgs).im_conf
+    np.testing.assert_array_equal(
+        got, jal.GlobalAligner(_jax_preds(preds)).mask_sky(imgs).im_conf)
+    assert (got[:, :6] == 0).all() and (got[:, 6:] == before[:, 6:]).all()
+    np.testing.assert_array_equal(a.im_conf, before)
 
 
 @pytest.mark.parametrize("graph", ["complete", "swin", "swin-2", "logwin",

@@ -1,7 +1,8 @@
 """Tests that need the CUDA card: the kernels KR/K1/K2 (dense), K3/K4
 (binned) and K5/K6 (tiled) against their plain versions, the render
-paths on the card, and stage 1's TINY MASt3R and golden aligner case on
-the card against the CPU. Run them on a machine with a card:
+paths on the card, stage 1's TINY MASt3R and golden aligner case on the
+card against the CPU, init_test_pose on the card against the CPU, and a
+live viewer render on the card. Run them on a machine with a card:
 
     python -m pytest tests/ -m gpu -q
 
@@ -470,3 +471,82 @@ def test_aligner_golden_case_on_card(cuda):
         np.testing.assert_allclose(got["focals"], want["focals"], rtol=1e-4,
                                    atol=1e-4)
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+
+
+def test_init_test_pose_on_card(cuda, tmp_path):
+    """The oracle run_init_test_pose (15 images, 210 pairs at 48x64, 30
+    aligner iterations) on the card against the CPU: the transported test
+    poses within 1e-4 (the aligner's gathers add with atomics on the
+    card)."""
+    from instantsplat_tpu_torch.init.aligner import PairPrediction
+    from instantsplat_tpu_torch.pipelines.init_test_pose_pipeline import (
+        run_init_test_pose)
+    from torch_init_cases import oracle_pointmap_fn, write_stage1_cloud
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        root = tmp_path / dev.type
+        files = write_stage1_cloud(root)
+        out[dev.type] = run_init_test_pose(
+            root, tmp_path / f"{dev.type}_out",
+            oracle_pointmap_fn(files, PairPrediction, with_test=True),
+            image_size=64, niter=30, device=dev)
+    assert out["cuda"].shape == (12, 4, 4)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+
+
+def test_viewer_render_on_card(cuda, tmp_path):
+    """train_joint on the card answers one loopback viewer request before
+    its first step: the image is render() of the same camera and params
+    within 1/255, rendered by the dense kernels."""
+    import socket
+    import threading
+
+    from instantsplat_tpu_torch.convert import gaussians_from_numpy, to_numpy
+    from instantsplat_tpu_torch.data.scene import read_scene
+    from instantsplat_tpu_torch.models.camera import fov2focal
+    from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
+    from instantsplat_tpu_torch.pipelines.trainer import (TrainerConfig,
+                                                          train_joint)
+    from instantsplat_tpu_torch.render.network_gui import NetworkGUI
+    from torch_scenes import (receive_image, send_view_request,
+                              write_tiny_scene)
+
+    write_tiny_scene(tmp_path / "scene")
+    info = read_scene(tmp_path / "scene", 3, device=cuda)
+    g = GaussianModel.create_from_pcd(
+        info.points, info.colors, max_sh_degree=2, device=cuda,
+        cam_poses=GaussianModel.init_cam_poses_from_w2c(info.poses_w2c))
+    arrays = to_numpy(g)
+    h, w = 48, 64
+    gui = NetworkGUI()
+    gui.init("127.0.0.1", 0)
+    conn = socket.create_connection(
+        ("127.0.0.1", gui.listener.getsockname()[1]), timeout=60)
+    send_view_request(conn, h, w, info.poses_w2c[2])
+    got = {}
+
+    def receive():
+        got["img"], _ = receive_image(conn, h, w)
+        conn.close()
+
+    t = threading.Thread(target=receive)
+    t.start()
+    before = RP.K1.launches
+    try:
+        train_joint(gaussians_from_numpy(arrays, 2, device=cuda),
+                    info.cameras, OptimizationConfig(), TrainerConfig(
+                        iterations=2, backend="pallas", log_every=1),
+                    spatial_lr_scale=info.nerf_radius, viewer=gui)
+    finally:
+        t.join(timeout=60)
+        gui.close()
+    assert not t.is_alive()
+    assert RP.K1.launches - before == 3  # two steps and the viewer's render
+    w2c = info.poses_w2c[2]
+    cam = Camera.create(w2c[:3, :3], w2c[:3, 3], fx=fov2focal(1.0, w),
+                        fy=fov2focal(0.8, h), height=h, width=w, device=cuda)
+    with torch.no_grad():
+        want = render(gaussians_from_numpy(arrays, 2, device=cuda), cam,
+                      backend="pallas").render.cpu().numpy()
+    assert np.abs(got["img"] / 255.0 - want).max() <= 1 / 255

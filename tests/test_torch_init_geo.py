@@ -38,45 +38,12 @@ from instantsplat_tpu_torch.init.aligner import PairPrediction
 from instantsplat_tpu_torch.models import mast3r, mast3r_infer
 from instantsplat_tpu_torch.pipelines import init_geo_pipeline as pipe
 from test_pipeline_e2e import H, N_IMAGES, N_VIEWS, W, _scene_geometry
-from torch_init_cases import TINY
+from torch_init_cases import (TINY, oracle_pointmap_fn, scene_geometry,
+                              write_oracle_scene)
 
 torch.set_num_threads(2)
 NITER = 60
 MAX_PTS = 4000  # below the 3 x 48 x 64 pixels: the seeded downsample runs
-
-
-def _write_scene(root):
-    (root / "images").mkdir(parents=True)
-    _, _, _, imgs = _scene_geometry()
-    for v in range(N_IMAGES):
-        images.save_image(root / "images" / f"frame_{v:04d}.png", imgs[v])
-    return [f"frame_{v:04d}.png" for v in range(N_IMAGES)]
-
-
-def _oracle(files, cls):
-    """tests/test_pipeline_e2e.py's oracle pointmaps of the train views
-    plus seeded noise of 0.01: exact pointmaps start the aligner at the
-    rounding floor of its loss, where the gradients' signs are rounding
-    noise that Adam turns into whole steps, so no two implementations
-    follow one path from there. -> pointmap_fn returning `cls`."""
-    c2ws, pts_world, pts_cam, _ = _scene_geometry()
-    _, _, train_idx, _ = scene.split_train_test(files, N_VIEWS)
-
-    def fn(imgs, pairs):
-        rng = np.random.default_rng(0)
-        t = [train_idx[i] for i, _ in pairs], [train_idx[j] for _, j in pairs]
-        pred_i = pts_cam[t[0]]
-        pred_j = np.einsum("eni,eij->enj", (pts_world[t[1]] - c2ws[
-            t[0], None, None, :3, 3]).reshape(len(pairs), -1, 3),
-            c2ws[t[0], :3, :3]).reshape(pred_i.shape)
-        conf = 1.0 + np.exp(rng.random(pred_i.shape[:3]).astype(np.float32))
-        noise = 0.01 * rng.standard_normal((2,) + pred_i.shape)
-        return cls(edges=list(pairs),
-                   pred_i=(pred_i + noise[0]).astype(np.float32),
-                   pred_j=(pred_j + noise[1]).astype(np.float32),
-                   conf_i=conf, conf_j=conf * 1.05)
-
-    return fn
 
 
 @pytest.fixture(scope="module")
@@ -86,17 +53,17 @@ def scenes(tmp_path_factory):
     root = tmp_path_factory.mktemp("init_geo")
     out = {}
     for name in ("jax", "port"):
-        files = _write_scene(root / name)
+        files = write_oracle_scene(root / name)
         kw = dict(n_views=N_VIEWS, image_size=max(H, W), niter=NITER,
                   focal_avg=True, conf_aware_ranking=True, co_vis_dsp=True,
                   depth_thre=0.01, save_all_pts=True, max_pts=MAX_PTS)
         np.random.seed(0)  # save_points3d's downsample draws from it
         if name == "jax":
             jpipe.run_init_geo(root / name, root / f"{name}_out",
-                               _oracle(files, jPairPrediction), **kw)
+                               oracle_pointmap_fn(files, jPairPrediction), **kw)
         else:
             al = pipe.run_init_geo(root / name, root / f"{name}_out",
-                                   _oracle(files, PairPrediction),
+                                   oracle_pointmap_fn(files, PairPrediction),
                                    device="cpu", **kw)
             assert set(al.timings) == {"load", "inference", "init_mst",
                                        "align", "write"}
@@ -158,6 +125,14 @@ def test_run_init_geo_writes_jax_sparse(scenes, sub):
     # the co-visibility masks dropped points of a later view
     assert any(png.read_png(a / f"overlapping_masks_{N_VIEWS}" / n).any()
                for n in names)
+
+
+def test_oracle_scene_is_the_jax_tests_scene():
+    """torch_init_cases' copy of the scene (no JAX, so the card's tests
+    use it too) is tests/test_pipeline_e2e.py's, array for array."""
+    for got, want in zip(scene_geometry(), _scene_geometry()):
+        np.testing.assert_array_equal(got, want)
+    assert (H, W, N_IMAGES, N_VIEWS) == (48, 64, 14, 3)
 
 
 def test_init_geo_focal_near_truth(scenes):
@@ -363,7 +338,7 @@ def test_missing_ckpt_raises_jax_error():
 
 
 def test_cli_runs_on_cpu_and_needs_a_card_by_default(tmp_path, monkeypatch):
-    files = _write_scene(tmp_path / "scene")
+    files = write_oracle_scene(tmp_path / "scene")
     assert len(files) == N_IMAGES
     argv = ["-s", str(tmp_path / "scene"), "-m", str(tmp_path / "out"),
             "--n_views", "3", "--ckpt_path", "random:0", "--image_size",

@@ -7,14 +7,22 @@ that need a card can use them too.
   dict with AsymmetricMASt3R naming (same seed, same draws);
 - `aligner_case`: scripts/make_goldens.py's `build_aligner_case` inputs
   (a fixed synthetic arc scene), and `run_aligner_case` running them
-  through the port's aligner.
+  through the port's aligner;
+- the oracle scene of the stage-1 tests: `scene_geometry` (a copy of
+  tests/test_pipeline_e2e.py's `_scene_geometry`, 14 views of a textured
+  plane at 48x64), `write_oracle_scene` (its PNG frames) and
+  `oracle_pointmap_fn` (its exact pointmaps plus seeded noise, for the
+  train views or for the train and test views together), and
+  `write_stage1_cloud`, the sparse_3/0 that init_test_pose reads.
 """
 
 import numpy as np
 
+from instantsplat_tpu_torch.data import images, scene
 from instantsplat_tpu_torch.init.aligner import GlobalAligner, PairPrediction
 from instantsplat_tpu_torch.init.pairs import make_pair_indices
 from instantsplat_tpu_torch.models.mast3r import MASt3RConfig
+from instantsplat_tpu_torch.utils import transforms as T
 
 TINY = MASt3RConfig(
     patch_size=16,
@@ -159,3 +167,104 @@ def run_aligner_case(device="cpu", niter=30):
     return dict(poses=np.asarray(al.get_im_poses(), np.float64),
                 focals=np.asarray(al.get_focals(), np.float64),
                 loss=np.float64(loss))
+
+
+# tests/test_pipeline_e2e.py's oracle scene
+SCENE_H, SCENE_W = 48, 64
+SCENE_FOCAL = 50.0
+SCENE_IMAGES = 14
+SCENE_VIEWS = 3
+
+
+def scene_geometry(h=SCENE_H, w=SCENE_W):
+    """c2w poses + per-view (world points, camera points, image) of 14
+    views along an arc in front of a textured plane at z = 3."""
+    def rot_y(a):
+        return np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                         [-np.sin(a), 0, np.cos(a)]])
+
+    def texture(x, y):
+        r = 0.5 + 0.45 * np.sin(2.2 * x) * np.cos(1.7 * y)
+        g = 0.5 + 0.45 * np.sin(1.3 * x + 1.0) * np.sin(2.9 * y)
+        b = 0.5 + 0.45 * np.cos(2.0 * x - 0.5) * np.cos(1.1 * y + 0.3)
+        return np.stack([r, g, b], -1)
+
+    c2ws, pts_world, pts_cam, imgs = [], [], [], []
+    gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+    dirs = np.stack([(gx - w / 2) / SCENE_FOCAL, (gy - h / 2) / SCENE_FOCAL,
+                     np.ones_like(gx)], -1)
+    for v in range(SCENE_IMAGES):
+        ang = 0.05 * (v - (SCENE_IMAGES - 1) / 2)
+        R = rot_y(ang)
+        center = np.array([1.5 * np.sin(ang), 0.02 * v,
+                           -1.5 * (1 - np.cos(ang))])
+        m = np.eye(4)
+        m[:3, :3] = R
+        m[:3, 3] = center
+        c2ws.append(m)
+        d_world = dirs @ R.T
+        lam = (3.0 - center[2]) / d_world[..., 2]
+        pw = center + lam[..., None] * d_world
+        pts_world.append(pw)
+        pts_cam.append((pw - center) @ R)
+        imgs.append(texture(pw[..., 0], pw[..., 1]))
+    return np.stack(c2ws), np.stack(pts_world), np.stack(pts_cam), \
+        np.stack(imgs)
+
+
+def write_oracle_scene(root):
+    """The scene's 14 frames as PNGs under root/images -> their names."""
+    (root / "images").mkdir(parents=True)
+    _, _, _, imgs = scene_geometry()
+    for v in range(SCENE_IMAGES):
+        images.save_image(root / "images" / f"frame_{v:04d}.png", imgs[v])
+    return [f"frame_{v:04d}.png" for v in range(SCENE_IMAGES)]
+
+
+def oracle_pointmap_fn(files, cls, with_test=False, noise=0.01):
+    """pointmap_fn(images, pairs) -> `cls` (either package's
+    PairPrediction) of the scene's exact pointmaps plus seeded noise.
+    Image k of the pairs is split_train_test's k-th train view, then (with
+    `with_test`, as init_test_pose orders them) its test views.
+
+    The noise (0.01) matters: exact pointmaps start the aligner at the
+    rounding floor of its loss, where the gradients' signs are rounding
+    noise that Adam turns into whole steps, so no two implementations
+    follow one path from there."""
+    c2ws, pts_world, pts_cam, _ = scene_geometry()
+    _, _, train_idx, test_idx = scene.split_train_test(files, SCENE_VIEWS)
+    frames = list(train_idx) + ([int(k) for k in test_idx]
+                                if with_test else [])
+
+    def fn(imgs, pairs):
+        rng = np.random.default_rng(0)
+        t = [frames[i] for i, _ in pairs], [frames[j] for _, j in pairs]
+        pred_i = pts_cam[t[0]]
+        pred_j = np.einsum("eni,eij->enj", (pts_world[t[1]] - c2ws[
+            t[0], None, None, :3, 3]).reshape(len(pairs), -1, 3),
+            c2ws[t[0], :3, :3]).reshape(pred_i.shape)
+        conf = 1.0 + np.exp(rng.random(pred_i.shape[:3]).astype(np.float32))
+        eps = noise * rng.standard_normal((2,) + pred_i.shape)
+        return cls(edges=list(pairs),
+                   pred_i=(pred_i + eps[0]).astype(np.float32),
+                   pred_j=(pred_j + eps[1]).astype(np.float32),
+                   conf_i=conf, conf_j=conf * 1.05)
+
+    return fn
+
+
+def write_stage1_cloud(root, scale=1.0, shift=(0.3, 0.3, 0.3)):
+    """The oracle scene's frames plus sparse_3/0 as stage 1 leaves it for
+    init_test_pose: `points3D_all.npy`, the train views' true points turned
+    by 0.3 rad about y, scaled by `scale` and moved by `shift`, and
+    `non_scaled_focals.npy`, the true focals. -> the frames' names."""
+    files = write_oracle_scene(root)
+    _, sparse_0, _ = scene.init_filestructure(root, SCENE_VIEWS)
+    _, pts_world, _, _ = scene_geometry()
+    _, _, train_idx, _ = scene.split_train_test(files, SCENE_VIEWS)
+    R = T.qvec_to_rotmat(np.array([np.cos(0.15), 0.0, np.sin(0.15), 0.0]))
+    pts = scale * pts_world[train_idx] @ R.T + np.array(shift)
+    np.save(sparse_0 / "points3D_all.npy", pts.astype(np.float32))
+    np.save(sparse_0 / "non_scaled_focals.npy",
+            np.full(SCENE_VIEWS, SCENE_FOCAL, np.float32))
+    return files

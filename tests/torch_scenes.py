@@ -9,9 +9,12 @@ own writers (no JAX), so that the tests that need a card can use them too.
   views whose split_train_test(., 3) train subset is the three train
   views (indices 0, 12 and 14);
 - `refine_case`: Gaussians, a view and a perturbed start pose for the
-  test-time pose refiner.
+  test-time pose refiner;
+- `send_view_request` / `receive_image`: a SIBR viewer client's side of
+  render/network_gui.py's protocol.
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -39,40 +42,47 @@ def look_at(eye):
     return M
 
 
-def write_tiny_scene(root: Path, seed=0):
-    """sparse_3/0 (COLMAP text + points3D.ply) and images/*.png."""
+def _camera(cid, h, w):
+    f = 60.0 * w / W
+    return colmap.ColmapCamera(cid, "PINHOLE", w, h,
+                               np.array([f, f, w / 2, h / 2]))
+
+
+def write_tiny_scene(root: Path, seed=0, n_pts=N_PTS, hw=(H, W)):
+    """sparse_3/0 (COLMAP text + points3D.ply of `n_pts` points) and
+    images/*.png of `hw` pixels (the focal scales with the width)."""
+    h, w = hw
     rng = np.random.default_rng(seed)
     sparse = root / "sparse_3" / "0"
     sparse.mkdir(parents=True)
     (root / "images").mkdir()
-    pts = rng.normal(size=(N_PTS, 3)) * [0.8, 0.6, 0.4]
+    pts = rng.normal(size=(n_pts, 3)) * [0.8, 0.6, 0.4]
     # no color at exactly 0: there SH + 0.5 sits on the max(., 0) clamp,
     # where jitted JAX (an FMA leaves it at -eps) and eager PyTorch take
     # different subgradients (ROADMAP.md queue 3)
     ply.store_point_cloud(sparse / "points3D.ply", pts,
-                          rng.uniform(1, 255, (N_PTS, 3)))
-    yy, xx = np.mgrid[0:H, 0:W] / 10.0
+                          rng.uniform(1, 255, (n_pts, 3)))
+    yy, xx = np.mgrid[0:h, 0:w] / 10.0
     cams, ims = {}, {}
     for i, ang in enumerate(TRAIN_ANGLES):
         img = np.stack([np.sin(xx + i), np.cos(yy - i), np.sin(xx * yy)], -1)
         png.write_png(root / "images" / f"{i:03d}.png",
                       ((img * 0.4 + 0.5) * 255).astype(np.uint8))
         w2c = look_at((4 * np.sin(ang), 0.2, -4 * np.cos(ang)))
-        cams[i + 1] = colmap.ColmapCamera(i + 1, "PINHOLE", W, H,
-                                          np.array([60.0, 60.0, W / 2,
-                                                    H / 2]))
+        cams[i + 1] = _camera(i + 1, h, w)
         ims[i + 1] = colmap.ColmapImage(i + 1, T.rotmat_to_qvec(w2c[:3, :3]),
                                         w2c[:3, 3], i + 1, f"{i:03d}.png")
     colmap.write_cameras_text(cams, sparse / "cameras.txt")
     colmap.write_images_text(ims, sparse / "images.txt")
 
 
-def write_test_split(root: Path, angles=TEST_ANGLES):
+def write_test_split(root: Path, angles=TEST_ANGLES, hw=(H, W)):
     """sparse_3/1 with test views between the train views: images, and
     start poses perturbed from their look-at poses."""
     sparse = root / "sparse_3" / "1"
     sparse.mkdir(parents=True)
-    yy, xx = np.mgrid[0:H, 0:W] / 10.0
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w] / 10.0
     cams, ims = {}, {}
     rng = np.random.default_rng(9)
     for i, ang in enumerate(angles):
@@ -83,9 +93,7 @@ def write_test_split(root: Path, angles=TEST_ANGLES):
                       ((img * 0.4 + 0.5) * 255).astype(np.uint8))
         w2c = look_at((4 * np.sin(ang), 0.2, -4 * np.cos(ang)))
         w2c[:3, 3] += rng.normal(size=3) * 0.05
-        cams[i + 1] = colmap.ColmapCamera(i + 1, "PINHOLE", W, H,
-                                          np.array([60.0, 60.0, W / 2,
-                                                    H / 2]))
+        cams[i + 1] = _camera(i + 1, h, w)
         ims[i + 1] = colmap.ColmapImage(i + 1, T.rotmat_to_qvec(w2c[:3, :3]),
                                         w2c[:3, 3], i + 1, name)
     colmap.write_cameras_text(cams, sparse / "cameras.txt")
@@ -105,10 +113,10 @@ def write_gt_model(root: Path):
     colmap.write_images_text(ims, root / "sparse" / "0" / "images.txt")
 
 
-def write_eval_scene(root: Path):
+def write_eval_scene(root: Path, n_pts=N_PTS, hw=(H, W)):
     """A tiny scene with a test split and a ground-truth model."""
-    write_tiny_scene(root)
-    write_test_split(root)
+    write_tiny_scene(root, n_pts=n_pts, hw=hw)
+    write_test_split(root, hw=hw)
     write_gt_model(root)
 
 
@@ -139,3 +147,31 @@ def refine_case():
     P[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]) @ M[:3, :3]
     P[:3, 3] += [0.05, -0.04, 0.03]
     return arrays, M, gt, T.matrix_to_pose_np(P)
+
+
+def send_view_request(conn, h, w, w2c=None):
+    """One SIBR request for an h x w view of the world-to-camera `w2c`
+    (identity by default): the viewer sends its view matrix transposed,
+    with the y and z columns negated, fov_x 1.0 and fov_y 0.8."""
+    view = np.eye(4) if w2c is None else np.array(w2c, np.float64).T
+    view[:, 1:3] *= -1
+    msg = dict(resolution_x=w, resolution_y=h, train=False, fov_y=0.8,
+               fov_x=1.0, z_near=0.01, z_far=100.0, shs_python=False,
+               rot_scale_python=False, keep_alive=True, scaling_modifier=1.0,
+               view_matrix=view.flatten().tolist(),
+               view_projection_matrix=view.flatten().tolist())
+    payload = json.dumps(msg).encode("utf-8")
+    conn.sendall(len(payload).to_bytes(4, "little") + payload)
+
+
+def receive_image(conn, h, w):
+    """-> (the [h, w, 3] uint8 image, the verification string)."""
+    img = b""
+    while len(img) < h * w * 3:
+        chunk = conn.recv(h * w * 3 - len(img))
+        if not chunk:
+            raise ConnectionError("the server closed the connection")
+        img += chunk
+    n = int.from_bytes(conn.recv(4), "little")
+    return (np.frombuffer(img, np.uint8).reshape(h, w, 3),
+            conn.recv(n).decode("ascii"))
