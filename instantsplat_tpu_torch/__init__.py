@@ -13,7 +13,10 @@ global aligner, the `sparse_{n}` writer), stage 2 (`cli.train`, the joint
 Gaussian + camera-pose optimisation, with every rasterizer backend and
 the `auto` probe, the validation sweep and the live viewer), stage 3
 (`cli.render`, or `cli.init_test_pose`), stage 5 (`cli.metrics`), the
-orchestration (`cli.run_eval`, `cli.run_infer`) and `cli.demo`.
+orchestration (`cli.run_eval`, `cli.run_infer`), `cli.demo`, and the
+MASt3R sparse-alignment toolset (`ops/matching`, `init/sparse_align`,
+`init/depth_refine`, `models/densify`, `data/colmap_db`, `data/exr` with
+its host C++ codec `csrc/exr_native.cpp`, the Blender reader).
 
 Entry points take an explicit `device` and default to "cuda". Asking for
 CUDA without a card raises; nothing falls back to the CPU.

@@ -147,6 +147,14 @@ def load_images(paths, size=512, square_ok=False):
     return arr, arr.shape[1:3], orig_wh
 
 
+def load_images_from_dir(image_dir, size=512):
+    """The numerically sorted images of a folder through `load_images`
+    -> (imgs, (H, W), original (W, H), files, suffix)."""
+    files, suffix = sorted_image_files(image_dir)
+    imgs, hw, orig_wh = load_images(files, size=size)
+    return imgs, hw, orig_wh, files, suffix
+
+
 def load_images_mixed(paths, size=512, square_ok=False):
     """-> (imgs: list of [H_i, W_i, 3] float32 in [0,1], shapes [V, 2] int
     (H_i, W_i), org_whs: each image's original (W, H))."""

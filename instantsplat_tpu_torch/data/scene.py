@@ -1,21 +1,24 @@
-"""Scene I/O (port of instantsplat_tpu/data/scene.py, all but the
-NeRF-synthetic reader).
+"""Scene I/O (port of instantsplat_tpu/data/scene.py).
 
 Stage 1 writes a COLMAP-format scene (`sparse_{n}/0` train, `sparse_{n}/1`
 test) plus ply/npy sidecars; stages 2-5 read a split of it back: text
 extrinsics and intrinsics, cameras sorted by image name, ground-truth
 images resized to the recorded resolution divided by `resolution_scale`,
 and the fused point cloud, which is always `sparse_{n}/0/points3D.ply`.
+The Blender / NeRF-synthetic reader (`read_nerf_synthetic`) reads
+`transforms_{train,test}.json` scenes; their RGBA PNGs go through the
+package's own codec (data/png.py), so they need no Pillow.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
 
-from instantsplat_tpu_torch.data import colmap, images as image_io, ply
+from instantsplat_tpu_torch.data import colmap, images as image_io, ply, png
 from instantsplat_tpu_torch.models.camera import Camera
 
 
@@ -238,3 +241,92 @@ def read_colmap_gt_pose(gt_pose_path, sparse_dir="sparse/0") -> np.ndarray:
                                    / "images.txt")
     items = sorted(extr.values(), key=lambda im: im.name)
     return np.stack([np.linalg.inv(im.w2c) for im in items])
+
+
+# ---------------------------------------------------------------------------
+# Blender / NeRF-synthetic transforms reader
+# (scene/dataset_readers.py:372-448)
+# ---------------------------------------------------------------------------
+
+
+def _read_rgba(path) -> np.ndarray:
+    """-> uint8 [H, W, 4], as PIL's convert("RGBA") gives it: grey is
+    replicated, a missing alpha is 255."""
+    if Path(path).suffix.lower() != ".png":
+        Image = image_io._pillow(f"reading {path}")
+        return np.asarray(Image.open(path).convert("RGBA"))
+    arr = png.read_png(path)
+    c = arr.shape[2]
+    rgb = arr[:, :, :3] if c >= 3 else np.repeat(arr[:, :, :1], 3, axis=2)
+    alpha = (arr[:, :, c - 1:] if c in (2, 4)
+             else np.full(arr.shape[:2] + (1,), 255, np.uint8))
+    return np.concatenate([rgb, alpha], axis=2)
+
+
+def read_cameras_from_transforms(path, transformsfile, white_background,
+                                 extension=".png", device="cuda"):
+    """-> (cameras, poses_w2c, names): NeRF transforms_*.json frames with
+    the OpenGL->COLMAP axis flip and alpha compositing over the
+    background; cameras (and their images) on `device`."""
+    path = Path(path)
+    with open(path / transformsfile) as f:
+        contents = json.load(f)
+    fovx = contents["camera_angle_x"]
+    cams, poses, names = [], [], []
+    for idx, frame in enumerate(contents["frames"]):
+        img_path = path / (frame["file_path"] + extension)
+        c2w = np.array(frame["transform_matrix"], np.float64)
+        c2w[:3, 1:3] *= -1  # OpenGL/Blender -> COLMAP axes
+        w2c = np.linalg.inv(c2w)
+        im = _read_rgba(img_path).astype(np.float32) / 255.0
+        bg = np.ones(3) if white_background else np.zeros(3)
+        rgb = im[:, :, :3] * im[:, :, 3:4] + bg * (1 - im[:, :, 3:4])
+        h, w = rgb.shape[:2]
+        fx = w / (2 * np.tan(fovx / 2))
+        cams.append(Camera.create(
+            R=w2c[:3, :3], t=w2c[:3, 3], fx=fx, fy=fx, height=h, width=w,
+            image=rgb.astype(np.float32), uid=idx, device=device))
+        poses.append(w2c)
+        names.append(Path(frame["file_path"]).stem + extension)
+    return cams, np.stack(poses), names
+
+
+def read_nerf_synthetic(path, white_background=False, eval_split=True,
+                        extension=".png", num_random_pts=100_000, seed=0,
+                        device="cuda"):
+    """readNerfSyntheticInfo: transforms_{train,test}.json and a random
+    init point cloud, stored to points3d.ply on the first read
+    -> (SceneInfo, test cameras, test poses)."""
+    path = Path(path)
+    train_cams, train_poses, names = read_cameras_from_transforms(
+        path, "transforms_train.json", white_background, extension, device)
+    try:
+        test_cams, test_poses, _ = read_cameras_from_transforms(
+            path, "transforms_test.json", white_background, extension,
+            device)
+    except OSError:
+        test_cams, test_poses = [], np.zeros((0, 4, 4))
+    if not eval_split:
+        train_cams = train_cams + test_cams
+        train_poses = np.concatenate([train_poses, test_poses]) \
+            if len(test_cams) else train_poses
+        test_cams, test_poses = [], np.zeros((0, 4, 4))
+
+    ply_path = path / "points3d.ply"
+    if not ply_path.exists():
+        rng = np.random.default_rng(seed)
+        xyz = rng.random((num_random_pts, 3)) * 2.6 - 1.3
+        # random SH DC -> RGB like the reference (SH2RGB(rand/255))
+        c0 = 0.28209479177387814
+        cols = (rng.random((num_random_pts, 3)) / 255.0) * c0 + 0.5
+        ply.store_point_cloud(ply_path, xyz, cols * 255.0)
+    pts, cols = ply.fetch_point_cloud(ply_path)
+    return SceneInfo(
+        cameras=train_cams,
+        poses_w2c=train_poses,
+        points=pts,
+        colors=cols,
+        nerf_radius=_nerfpp_radius(list(train_poses)),
+        image_names=names,
+        ply_path=str(ply_path),
+    ), test_cams, test_poses

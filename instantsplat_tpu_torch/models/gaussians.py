@@ -20,6 +20,11 @@ from instantsplat_tpu_torch.ops.knn import mean_knn_dist2
 from instantsplat_tpu_torch.utils import sh as SH
 from instantsplat_tpu_torch.utils import transforms as T
 
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log(x / (1 - x)) (reference utils/general_utils.py:18)."""
+    return torch.log(x / (1 - x))
+
+
 # the differentiable fields, in checkpoint order
 PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
                 "opacity", "cam_poses")

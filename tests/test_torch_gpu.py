@@ -1,8 +1,11 @@
 """Tests that need the CUDA card: the kernels KR/K1/K2 (dense), K3/K4
 (binned) and K5/K6 (tiled) against their plain versions, the render
 paths on the card, stage 1's TINY MASt3R and golden aligner case on the
-card against the CPU, init_test_pose on the card against the CPU, and a
-live viewer render on the card. Run them on a machine with a card:
+card against the CPU, init_test_pose on the card against the CPU, a
+live viewer render on the card, and the sparse-alignment family:
+matching and sparse alignment on the card against the CPU, and a
+densification followed by a dense train step on the card. Run them on a
+machine with a card:
 
     python -m pytest tests/ -m gpu -q
 
@@ -550,3 +553,69 @@ def test_viewer_render_on_card(cuda, tmp_path):
         want = render(gaussians_from_numpy(arrays, 2, device=cuda), cam,
                       backend="pallas").render.cpu().numpy()
     assert np.abs(got["img"] / 255.0 - want).max() <= 1 / 255
+
+
+def test_matching_on_card_matches_cpu(cuda):
+    """Integer descriptors (a shifted copy with integer noise): every
+    distance is exact in float32 whatever the summation order, so the card
+    and the CPU must find the same matches. (Real-valued descriptors at a
+    near-tie may flip: cuBLAS and the CPU's GEMM round differently.)"""
+    from instantsplat_tpu_torch.ops.matching import fast_reciprocal_nns
+
+    rng = np.random.default_rng(0)
+    d1 = np.round(rng.standard_normal((96, 128, 24)) * 50).astype(np.float32)
+    d2 = np.roll(d1, (-2, -3), axis=(0, 1)) + rng.integers(
+        -5, 6, d1.shape).astype(np.float32)
+    for subsample in (4, 8):
+        got = fast_reciprocal_nns(d1, d2, subsample=subsample, chunk=512,
+                                  device=cuda)
+        ref = fast_reciprocal_nns(d1, d2, subsample=subsample, chunk=512,
+                                  device="cpu")
+        assert len(ref[0]) > 100
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_sparse_alignment_on_card_matches_cpu(cuda):
+    """30 + 30 iterations: the gathers' backward adds with atomics on the
+    card, so the two differ by rounding (1e-3, as stage 1's aligner)."""
+    from instantsplat_tpu_torch.init.aligner import PairPrediction
+    from instantsplat_tpu_torch.init.sparse_align import (
+        extract_matches, sparse_global_alignment)
+    from torch_init_cases import attach_world_desc, sparse_scene
+
+    c2w, _, preds = sparse_scene(PairPrediction, n_views=3)
+    attach_world_desc(preds, c2w)
+    matches = extract_matches(preds, subsample=4, device="cpu")
+    res = {dev: sparse_global_alignment(preds, matches=matches, subsample=4,
+                                        niter1=30, niter2=30, device=dev)
+           for dev in (cuda, "cpu")}
+    np.testing.assert_allclose(res[cuda].c2w, res["cpu"].c2w, atol=1e-3)
+    np.testing.assert_allclose(res[cuda].focals, res["cpu"].focals,
+                               rtol=1e-3)
+    np.testing.assert_allclose(res[cuda].loss, res["cpu"].loss, rtol=1e-3)
+
+
+def test_densify_then_train_step_on_card(cuda):
+    from instantsplat_tpu_torch.models import densify
+    from instantsplat_tpu_torch.opt.gaussian_opt import (GaussianOptimizer,
+                                                         OptimizationConfig)
+    from instantsplat_tpu_torch.pipelines.trainer import train_step
+
+    g, cam = _scene(2000, 48, 64, 3, cuda)
+    opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
+                                               optim_pose=True))
+    state = opt.init(g)
+    grads = torch.zeros(g.num_points, device=cuda)
+    grads[::4] = 1.0
+    g, state = densify.densify_and_clone(g, state, grads, 0.5, extent=1e3)
+    g, state = densify.densify_and_split(g, state, torch.cat(
+        [grads, grads[:500]]), 0.5, extent=1e-3)
+    assert g.num_points == 2000 + 500 + 625
+    assert state.per_point_lr.shape == (g.num_points, 1)
+    before = (RP.K1.launches, RP.K2.launches)
+    out = train_step(g, cam, opt, state, 1, 2, torch.zeros(3, device=cuda),
+                     0.2, backend="pallas", chunk=256)
+    assert np.isfinite(float(out["loss"]))
+    assert (RP.K1.launches, RP.K2.launches) == (before[0] + 1,
+                                                before[1] + 1)

@@ -268,3 +268,87 @@ def write_stage1_cloud(root, scale=1.0, shift=(0.3, 0.3, 0.3)):
     np.save(sparse_0 / "non_scaled_focals.npy",
             np.full(SCENE_VIEWS, SCENE_FOCAL, np.float32))
     return files
+
+
+def _rot(axis, angle):
+    axis = np.asarray(axis, float)
+    axis /= np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]],
+                  [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def sparse_scene(cls, n_views=3, h=24, w=32, focal=40.0, seed=0):
+    """tests/test_aligner.py's `_synthetic_scene`: cameras on an arc
+    looking at the plane z = 3, exact pairwise pointmaps, as `cls` (either
+    package's PairPrediction) -> (c2w, focal, preds)."""
+    rng = np.random.default_rng(seed)
+    c2w = []
+    for v in range(n_views):
+        ang = 0.12 * (v - (n_views - 1) / 2)
+        m = np.eye(4)
+        m[:3, :3] = _rot([0, 1, 0], ang)
+        m[:3, 3] = [2.0 * np.sin(ang), 0.0, -2.0 * (1 - np.cos(ang))]
+        c2w.append(m)
+    c2w = np.stack(c2w)
+    gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+    dirs_cam = np.stack(
+        [(gx - w / 2) / focal, (gy - h / 2) / focal, np.ones_like(gx)], -1)
+    pts_world, pts_cam = [], []
+    for v in range(n_views):
+        Rv, tv = c2w[v, :3, :3], c2w[v, :3, 3]
+        d_world = dirs_cam @ Rv.T
+        lam = (3.0 - tv[2]) / d_world[..., 2]
+        pw = tv + lam[..., None] * d_world
+        pts_world.append(pw)
+        pts_cam.append((pw - tv) @ Rv)
+    edges = make_pair_indices(n_views, "complete", symmetrize=True)
+    pred_i = np.stack([pts_cam[i] for i, j in edges]).astype(np.float32)
+    pred_j = np.stack([
+        (pts_world[j] - c2w[i, :3, 3]) @ c2w[i, :3, :3] for i, j in edges
+    ]).astype(np.float32)
+    conf = 1.0 + np.exp(rng.random((len(edges), h, w)).astype(np.float32))
+    return c2w, focal, cls(edges=edges, pred_i=pred_i, pred_j=pred_j,
+                           conf_i=conf, conf_j=conf * 1.1)
+
+
+def world_desc(pts_in_frame, c2w_i):
+    """tests/test_aligner.py's descriptors: a smooth, injective,
+    unit-normalised function of the WORLD point, so corresponding pixels
+    share descriptors."""
+    world = pts_in_frame @ c2w_i[:3, :3].T + c2w_i[:3, 3]
+    x, y = world[..., 0], world[..., 1]
+    f = np.stack([x, y, np.sin(0.5 * x), np.cos(0.4 * y),
+                  np.sin(0.3 * (x + y)), np.ones_like(x)], -1)
+    return (f / np.linalg.norm(f, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def attach_world_desc(preds, c2w):
+    """preds.desc_i / desc_j from `world_desc` of the true poses."""
+    preds.desc_i = np.stack([world_desc(preds.pred_i[e], c2w[i])
+                             for e, (i, j) in enumerate(preds.edges)])
+    preds.desc_j = np.stack([world_desc(preds.pred_j[e], c2w[i])
+                             for e, (i, j) in enumerate(preds.edges)])
+    return preds
+
+
+def relative_pose_error(c2w_a, c2w_b):
+    """tests/test_aligner.py's `_relative_pose_error`: max rotation angle
+    (rad) and normalised translation error over all relative poses."""
+    n = len(c2w_a)
+    rot_err, t_err = 0.0, 0.0
+    ca = np.stack([m[:3, 3] for m in c2w_a])
+    cb = np.stack([m[:3, 3] for m in c2w_b])
+    sa = np.linalg.norm(ca - ca.mean(0), axis=1).mean() + 1e-12
+    sb = np.linalg.norm(cb - cb.mean(0), axis=1).mean() + 1e-12
+    for i in range(n):
+        for j in range(i + 1, n):
+            Ra = c2w_a[i][:3, :3].T @ c2w_a[j][:3, :3]
+            Rb = c2w_b[i][:3, :3].T @ c2w_b[j][:3, :3]
+            cos = (np.trace(Ra.T @ Rb) - 1) / 2
+            rot_err = max(rot_err, np.arccos(np.clip(cos, -1, 1)))
+            ta = c2w_a[i][:3, :3].T @ (ca[j] - ca[i]) / sa
+            tb = c2w_b[i][:3, :3].T @ (cb[j] - cb[i]) / sb
+            t_err = max(t_err, np.linalg.norm(ta - tb))
+    return rot_err, t_err
