@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's stages 1, 2, 3 and 5, the tools
 around them (init_test_pose, run_eval, run_infer, the viewer, the
-validation sweep, the demo) and the MASt3R sparse-alignment family, on
-one NVIDIA card and check them.
+validation sweep, the demo), the MASt3R sparse-alignment family and
+MASt3R pre-training, on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -148,17 +148,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    three-frame Blender scene read by read_nerf_synthetic and rendered
    through KR/K1 (one launch each). Prints each part's seconds and peak
    card memory.
+10. MASt3R pre-training at full width (ViT-L/BaseDecoder, phase 7's
+   float32 random:0 weights, not drawn again): (a) an 8-view posed scene
+   at 512x384 written by `write_synthetic_scene` (PNG images, .npy
+   depths: no Pillow); (b) one float32 training micro-batch (a 224x224
+   pair, mast3r_finetune with 256 correspondences) on the card against
+   the CPU: loss within 1e-4 relative, the global gradient norm and seven
+   named leaves within 1e-3 relative L2; (c) `cli.pretrain.main` in
+   process: mast3r_finetune with 1024 correspondences, colour jitter,
+   --bf16, 30 optimizer steps of 2 x accum 2 pairs, 4 loader threads, the
+   CLI's default learning rate and warmup; steps 8-10 run under
+   torch.profiler (busy share of the loop, top kernels); prints the
+   synchronised ms per step (median and spread of the last 20) and the
+   loop's, pairs/s, the achieved TFLOP/s (FLOP from the config), peak card
+   memory, the checkpoint's size and save seconds; every step's loss must
+   be finite and the loss must fall; (d) `train_loop` resumes that
+   checkpoint at step 30 and runs to 35 (history 31..35), with its load
+   seconds; (e) 5 float32 steps at the same shape. The pointmap scale
+   (max |pts3d|) is printed at the start, at step 30 and at step 35. KR
+   and K1-K6 must launch 0 times over the phase.
 
 The last lines are one JSON object {"kernels": [...]} with seven entries
 (each with `launches`, from its own path's run in phase 4,
 `launches_phase8`, from phase 8's in-process runs: its subprocess stages
-count in their own processes, and `launches_phase9`, from phase 9's
-densification check), the nvidia-smi line, and
-{"ok": true, "device": {...}}.
+count in their own processes, `launches_phase9`, from phase 9's
+densification check, and `launches_phase10`, 0 for every kernel), the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -264,6 +284,33 @@ C2F_MAXDIM = 256
 TSDF_NOISE = 0.05  # on view 0's depth map (the cameras stand 4 away)
 DENSIFY_STATS_ITERS = 10
 DENSIFY_TRAIN_ITERS = 20
+# Phase 10 (MASt3R pre-training): an 8-view posed scene at 512x384,
+# mast3r_finetune with 1024 correspondences a pair, colour jitter; 30 bf16
+# optimizer steps of 2 x accum 2 pairs (36 pairs a pass, so 4 passes),
+# then a resume to 35
+PRETRAIN_VIEWS, PRETRAIN_H, PRETRAIN_W = 8, 384, 512
+PRETRAIN_CORRES = 1024
+PRETRAIN_BATCH, PRETRAIN_ACCUM = 2, 2
+PRETRAIN_STEPS, PRETRAIN_RESUME_TO, PRETRAIN_EPOCHS = 30, 35, 4
+# cli.pretrain's defaults: with 100 warmup steps the learning rate climbs
+# to 3.5e-5 by step 35
+PRETRAIN_HYPER = dict(base_lr=1e-4, min_lr=1e-6, warmup_steps=100,
+                      weight_decay=0.05)
+# the CLI's steps that run under torch.profiler: before the last 20, which
+# are timed
+PRETRAIN_PROFILED = (8, 9, 10)
+# float32 (TF32 off) training micro-batch, card against CPU: the loss to
+# 1e-4 relative; the gradients (global norm and the named leaves, one in
+# each part of the model) to 1e-3 relative L2, as they sum over the
+# backward's longer chain of cuBLAS / cuDNN against oneDNN orders
+PRETRAIN_LOSS_RTOL = 1e-4
+PRETRAIN_GRAD_RTOL = 1e-3
+PRETRAIN_LEAVES = (
+    "patch_embed.proj.weight", "enc_blocks.0.attn.qkv.weight",
+    "enc_blocks.23.mlp.fc2.weight", "dec_blocks.0.cross_attn.projk.weight",
+    "dec_blocks2.11.mlp.fc1.weight", "downstream_head1.dpt.head.2.weight",
+    "downstream_head2.head_local_features.fc2.weight")
+BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 
 
 def fail(msg: str):
@@ -698,19 +745,22 @@ def contributing_pairs(packed, height, width, chunk=256) -> int:
     return total
 
 
-def profile_window(tag, backend, run, iters: int, top: int):
-    """torch.profiler over run(), which takes `iters` steps and ends
+@contextlib.contextmanager
+def profiled(tag, backend, iters: int, top: int):
+    """torch.profiler over the block, which takes `iters` steps and ends
     synchronised: device time per step by kernel name, and the share of
-    the window's wall time the card was busy."""
+    the block's wall time the card was busy. Yields a dict that gets
+    `busy_ms` and `events` on exit."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = {"busy_ms": 0.0, "events": 0}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        run()
+        yield out
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     by_name: dict[str, float] = {}
@@ -722,7 +772,8 @@ def profile_window(tag, backend, run, iters: int, top: int):
     n_events = sum(e.device_type == DeviceType.CUDA for e in prof.events())
     if not by_name:
         log(f"profile {tag}: torch.profiler recorded no device events")
-        return 0.0, 0
+        return
+    out.update(busy_ms=busy_ms, events=n_events)
     log(f"profile {tag} ({backend}): {iters} iterations, "
         f"{wall_ms / iters:.2f} ms/iter wall "
         f"(profiler on), device busy {busy_ms / iters:.2f} ms/iter = "
@@ -732,12 +783,11 @@ def profile_window(tag, backend, run, iters: int, top: int):
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"profile {tag}: {ms / iters:8.3f} ms/iter "
             f"{100 * ms / busy_ms:5.1f}% {name[:110]}")
-    return busy_ms, n_events
 
 
 def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
                        iters: int = 10):
-    """profile_window over `iters` steady steps of the training step on
+    """`profiled` over `iters` steady steps of the training step on
     one view with `backend`."""
     import torch
 
@@ -759,8 +809,9 @@ def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
 
     for i in range(3):
         step(i + 1)
-    profile_window(tag, backend, lambda: [step(i + 4) for i in range(iters)],
-                   iters, top)
+    with profiled(tag, backend, iters, top):
+        for i in range(iters):
+            step(i + 4)
 
 
 def kernel_table():
@@ -801,8 +852,6 @@ def run_cli(main, argv):
     just after, each run with no capacity signature checked or demoted.
     -> (what main returned, its stdout, seconds, launches {KR, K1..K6},
     the overflow guard's demotion warnings)."""
-    import contextlib
-
     import torch
 
     from instantsplat_tpu_torch.render import driver
@@ -1235,8 +1284,8 @@ def stages_3_and_5(scene: Path, model: Path, dev, smi: str):
     pose0 = T.matrix_to_pose_np(test.poses_w2c[:1])[0]
     make_pose_refiner(params, cam, num_iter=3)(pose0, cam.image)  # warm
     refine = make_pose_refiner(params, cam, num_iter=20)
-    profile_window("refine", "pallas", lambda: refine(pose0, cam.image), 20,
-                   top=8)
+    with profiled("refine", "pallas", 20, top=8):
+        refine(pose0, cam.image)
     del params
 
     # ---- the refiner and LPIPS on the card against the CPU ----
@@ -1331,7 +1380,8 @@ def stage_1_mast3r(scene: Path, dev, smi: str):
     """Phase 7, part 1: the full-width MASt3R with random:0 weights on the
     card; fp32 against the CPU, bf16 against fp32, and the times.
     -> (the bf16 model, its six pairs with descriptors, the three images),
-    which phase 9 reuses."""
+    which phase 9 reuses, and the float32 model on the CPU, which phase 10
+    trains (the numpy draw of its weights is not repeated)."""
     import copy
 
     import numpy as np
@@ -1353,8 +1403,9 @@ def stage_1_mast3r(scene: Path, dev, smi: str):
 
     # fp32, TF32 off: the card against the CPU on one pair
     x = torch.as_tensor(imgs[:2])
+    host_model = copy.deepcopy(model).cpu()  # phase 10 trains from it
     t0 = time.time()
-    cpu = mast3r_pair(copy.deepcopy(model).cpu(), x)
+    cpu = mast3r_pair(host_model, x)
     cpu_s = time.time() - t0
     card = mast3r_pair(model, x.to(dev))
     worst = {}
@@ -1423,7 +1474,7 @@ def stage_1_mast3r(scene: Path, dev, smi: str):
             "pairs")
     del model
     torch.cuda.empty_cache()
-    return model16, p16, imgs
+    return model16, p16, imgs, host_model
 
 
 def stage_1(scene: Path, tmp: Path, dev, smi: str):
@@ -1551,9 +1602,10 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
     for n in (0, 10):
         a = GlobalAligner(preds, device=dev)
         a.init_mst(focal_avg=True)
-        _, events[n] = profile_window(f"align {n} iterations", "aligner",
-                                      lambda: a.align(niter=n), max(n, 1),
-                                      top=4)
+        with profiled(f"align {n} iterations", "aligner", max(n, 1),
+                      top=4) as out:
+            a.align(niter=n)
+        events[n] = out["events"]
     log(f"aligner: {(events[10] - events[0]) / 10:.1f} device events "
         "(kernel launches and copies) per iteration")
     if not events[10] > events[0]:
@@ -1779,7 +1831,6 @@ def stage_tools(oracle: Path, tmp: Path, dev, smi: str):
     def run_tool(main, argv):
         """-> (exit code, seconds, {log name: stage seconds}) of an
         orchestrator whose stages run as subprocesses."""
-        import contextlib
         import re
 
         tee = _Tee(sys.stdout)
@@ -2453,11 +2504,354 @@ def stage_sparse(params, cams, mast3r, tmp: Path, dev, smi: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 10: MASt3R pre-training at full width
+# --------------------------------------------------------------------------
+
+
+def mast3r_pair_flops(cfg, h, w) -> dict:
+    """Multiply-add operations x 2 of one forward of a view pair at h x w,
+    by part, from the configuration's shapes (each matmul and conv counted
+    as 2 x its MACs; softmax, norms and elementwise work left out)."""
+    p = cfg.patch_size
+    s = (h // p) * (w // p)  # tokens per view
+    de, dd = cfg.enc_embed_dim, cfg.dec_embed_dim
+    fd, ld = cfg.dpt_feature_dim, cfg.dpt_layer_dims
+    conv3 = 2 * 9 * fd * fd  # a 3x3 fd -> fd conv, per output pixel
+    enc = 2 * (2 * s * 3 * p * p * de  # patch embed
+               + cfg.enc_depth * (24 * s * de * de + 4 * s * s * de))
+    dec = 2 * (2 * s * de * dd  # decoder_embed
+               + cfg.dec_depth * (32 * s * dd * dd + 8 * s * s * dd))
+    dims = cfg.dpt_dim_tokens
+    dpt = (2 * s * sum(a * b for a, b in zip(dims, ld))  # 1x1 projections
+           + 2 * s * 16 * ld[0] * ld[0]  # k4 s4 transposed conv
+           + 2 * s * 4 * ld[1] * ld[1]  # k2 s2 transposed conv
+           + 2 * (s // 4) * 9 * ld[3] * ld[3]  # 3x3 stride-2 conv
+           + 2 * 9 * fd * (16 * s * ld[0] + 4 * s * ld[1] + s * ld[2]
+                           + (s // 4) * ld[3]))  # layer_rn 3x3 convs
+    # fusion blocks: input at s/4, s, 4s, 16s pixels; residual units (two
+    # 3x3 convs each; one unit without a skip), a 1x1 conv after the x2
+    # upsample; the head's 3x3 fd -> last and 1x1 last -> 4 at 64s
+    dpt += (conv3 * (2 * s // 4 + 4 * s + 4 * 4 * s + 4 * 16 * s)
+            + 2 * fd * fd * (s + 4 * s + 16 * s + 64 * s)
+            + 2 * 64 * s * (9 * fd * cfg.dpt_last_dim
+                            + cfg.dpt_last_dim * 4))
+    idim = de + dd
+    n_out = (cfg.local_feat_dim + int(cfg.two_confs)) * p * p
+    heads = 2 * (dpt + 2 * s * (idim * 4 * idim + 4 * idim * n_out))
+    return {"encoder": enc, "decoder": dec, "heads": heads,
+            "total": enc + dec + heads}
+
+
+def pointmap_scale(model, batch) -> float:
+    """max |pts3d| over both views of the first micro-batch of `batch`
+    (stacked micro-batches), from a float32 forward without gradients."""
+    import torch
+
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        r1, r2 = model(batch["img1"][0].to(dev), batch["img2"][0].to(dev))
+    return max(float(r1["pts3d"].abs().max()),
+               float(r2["pts3d"].abs().max()))
+
+
+@contextlib.contextmanager
+def instrumented(trainer, prof_steps, tag, smi):
+    """Wrap `trainer`'s step factory and checkpoint I/O over the block
+    (the CLI and train_loop look them up in the module when they run):
+    each optimizer step's synchronised ms, end time and loss, each save's
+    and load's seconds; the steps numbered `prof_steps` (from 1, over the
+    block) run under `profiled`, whose result lands in rec["profile"].
+    Yields the record."""
+    import torch
+
+    rec = {"ms": [], "marks": [], "loss": [], "save": [], "load": [],
+           "profile": {"busy_ms": 0.0, "events": 0}}
+    names = ("make_dp_train_step", "save_pretrain_checkpoint",
+             "load_pretrain_checkpoint")
+    orig = {n: getattr(trainer, n) for n in names}
+    window = contextlib.ExitStack()
+
+    def make(*a, **kw):
+        init, step, place = orig["make_dp_train_step"](*a, **kw)
+
+        def timed(state, batch):
+            k = len(rec["ms"]) + 1
+            if k == prof_steps[0]:
+                rec["profile"] = window.enter_context(profiled(
+                    f"{tag} [{smi}]", "bf16", len(prof_steps), 12))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["loss"].append(float(metrics["loss"]))
+            if k == prof_steps[-1]:
+                window.close()
+            rec["marks"].append(time.perf_counter())
+            return state, metrics
+
+        return init, timed, place
+
+    def io(name):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            result = orig[f"{name}_pretrain_checkpoint"](*a, **kw)
+            rec[name].append(time.perf_counter() - t)
+            return result
+        return run
+
+    try:
+        trainer.make_dp_train_step = make
+        trainer.save_pretrain_checkpoint = io("save")
+        trainer.load_pretrain_checkpoint = io("load")
+        yield rec
+    finally:
+        window.close()
+        for n, f in orig.items():
+            setattr(trainer, n, f)
+
+
+def stage_pretrain(host_model, tmp: Path, dev, smi: str):
+    """Phase 10: MASt3R pre-training at full width. `host_model`: phase
+    7's float32 random:0 ViT-L/BaseDecoder on the CPU (its numpy draw is
+    not repeated). -> {kernel: launches} over the phase (all 0)."""
+    import copy
+    import itertools
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.cli import pretrain as pretrain_cli
+    from instantsplat_tpu_torch.train_dust3r import losses, trainer
+    from instantsplat_tpu_torch.train_dust3r.datasets import (
+        PosedMultiViewDataset, write_synthetic_scene)
+
+    t_phase = time.time()
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    cfg = host_model.cfg
+    torch.cuda.empty_cache()
+
+    # ---- (a) the data: posed RGBD scenes, PNG + .npy (no Pillow) ----
+    root = tmp / "pretrain"
+    write_synthetic_scene(root, name="scene0", n_views=PRETRAIN_VIEWS,
+                          h=PRETRAIN_H, w=PRETRAIN_W, focal=0.8 * PRETRAIN_W)
+    root224 = tmp / "pretrain224"
+    write_synthetic_scene(root224, name="scene0", n_views=2, h=224, w=224,
+                          focal=180.0)
+
+    # ---- (b) one float32 micro-batch, card against CPU ----
+    pair = next(PosedMultiViewDataset(
+        root224, resolution=(224, 224), n_corres=256).batches(1, seed=0))
+    objective = trainer._make_objective(cfg, losses.mast3r_finetune_loss,
+                                        0.2, None)
+    card_model = copy.deepcopy(host_model).to(dev)
+    out = {}
+    for name, model in (("card", card_model), ("cpu", host_model)):
+        model.requires_grad_(True)
+        t0 = time.time()
+        loss, _ = objective(model, trainer.to_device(
+            pair, next(model.parameters()).device))
+        loss.backward()
+        if name == "card":
+            torch.cuda.synchronize()
+        out[name] = (float(loss.detach()), {n: p.grad.detach().cpu()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None},
+                     time.time() - t0)
+        model.zero_grad(set_to_none=True)
+        model.requires_grad_(False)
+    (lc, gc, sc), (lp, gp, sp) = out["card"], out["cpu"]
+    loss_rel = abs(lc - lp) / abs(lp)
+    norm_c = math.sqrt(sum(float((g.double() ** 2).sum())
+                           for g in gc.values()))
+    norm_p = math.sqrt(sum(float((g.double() ** 2).sum())
+                           for g in gp.values()))
+    leaf_err = {n: rel_l2(gc[n], gp[n]) for n in PRETRAIN_LEAVES}
+    log(f"pretrain fp32 one pair 224x224 (mast3r_finetune, 256 "
+        f"correspondences) [{smi}], card ({sc:.2f} s) against the CPU "
+        f"({sp:.1f} s): "
+        f"loss {lc:.6g} / {lp:.6g} (relative {loss_rel:.2e}, limit "
+        f"{PRETRAIN_LOSS_RTOL:g}); gradient norm {norm_c:.6g} / {norm_p:.6g} "
+        f"(relative {abs(norm_c - norm_p) / norm_p:.2e}); relative L2 "
+        + ", ".join(f"{n} {v:.2e}" for n, v in leaf_err.items())
+        + f" (limit {PRETRAIN_GRAD_RTOL:g})")
+    if gc.keys() != gp.keys() or not gc:
+        fail("pretrain: card and CPU reached different parameters")
+    if not (loss_rel <= PRETRAIN_LOSS_RTOL and abs(norm_c - norm_p) / norm_p
+            <= PRETRAIN_GRAD_RTOL and max(leaf_err.values())
+            <= PRETRAIN_GRAD_RTOL):
+        fail("pretrain fp32: the card's loss or gradients are off the CPU's")
+    del gc, gp, out
+
+    # ---- the pointmap scale the random head starts from ----
+    n_pairs = PRETRAIN_BATCH * PRETRAIN_ACCUM
+    flops = mast3r_pair_flops(cfg, PRETRAIN_H, PRETRAIN_W)
+    train_flops = 3 * flops["total"] * n_pairs  # forward + backward
+    ds = PosedMultiViewDataset(root, resolution=[(PRETRAIN_W, PRETRAIN_H)],
+                               n_corres=PRETRAIN_CORRES,
+                               transform="color_jitter")
+    loader = ds.batches(PRETRAIN_BATCH, seed=7, n_epochs=PRETRAIN_EPOCHS)
+    fixed = [trainer.stack_microbatches(list(
+        itertools.islice(loader, PRETRAIN_ACCUM))) for _ in range(5)]
+    scales = {"start": pointmap_scale(card_model, fixed[0])}
+    kw = dict(PRETRAIN_HYPER, loss_fn=losses.mast3r_finetune_loss,
+              accum_iter=PRETRAIN_ACCUM, total_steps=PRETRAIN_STEPS)
+
+    # ---- (e) float32 speed: 5 steps without the loader's threads ----
+    # the CLI's shape and schedule on five fixed batches, from the weights
+    # the CLI starts from (the card's copy of (b)) and a fresh optimizer
+    # state, as the CLI starts
+    card_model.requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats()
+    init, step, _ = trainer.make_dp_train_step(cfg, compute_dtype=None, **kw)
+    state = init(card_model)
+    f32_ms, f32_loss = [], []
+    for b in fixed:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, b)
+        torch.cuda.synchronize()
+        f32_ms.append((time.perf_counter() - t) * 1e3)
+        f32_loss.append(float(met["loss"]))
+    f32_peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, card_model
+    torch.cuda.empty_cache()
+    med = statistics.median(f32_ms[1:])
+    log(f"pretrain fp32 (TF32 off) without the loader [{smi}]: 5 steps of "
+        f"{n_pairs} pairs at {PRETRAIN_W}x{PRETRAIN_H}, ms "
+        + ", ".join(f"{v:.1f}" for v in f32_ms)
+        + f" (median of the last 4 {med:.1f}; {med / n_pairs:.1f} ms a "
+        f"pair; {train_flops / (med / 1e3) / 1e12:.1f} TFLOP/s); losses "
+        + ", ".join(f"{v:.4g}" for v in f32_loss)
+        + f"; peak card memory {f32_peak:.2f} GB")
+    if not np.isfinite(f32_loss).all():
+        fail("pretrain fp32: a non-finite loss")
+
+    # ---- (c) cli.pretrain, bf16, timed; (d) the resume to 35 ----
+    pth = tmp / "random0.pth"
+    t0 = time.time()
+    torch.save(host_model.state_dict(), pth)
+    log(f"pretrain [{smi}]: phase 7's random:0 weights saved as {pth.name} "
+        f"({pth.stat().st_size / 1e9:.2f} GB) in {time.time() - t0:.1f} s")
+    out_dir = tmp / "pretrain_out"
+    spec = (f"PosedMultiViewDataset('{root}', resolution=[({PRETRAIN_W}, "
+            f"{PRETRAIN_H})], n_corres={PRETRAIN_CORRES}, "
+            "transform='color_jitter')")
+    # the learning rate, its warmup and the weight decay are the CLI's
+    # defaults (PRETRAIN_HYPER)
+    argv = ["--train_dataset", spec, "--criterion", "mast3r_finetune",
+            "--bf16", "--batch_size", PRETRAIN_BATCH, "--accum_iter",
+            PRETRAIN_ACCUM, "--steps", PRETRAIN_STEPS, "--num_workers", 4,
+            "--epochs", PRETRAIN_EPOCHS, "--print_freq", 1, "--save_freq",
+            10 * PRETRAIN_STEPS, "--pretrained", pth, "--output_dir",
+            out_dir]
+    with instrumented(trainer, PRETRAIN_PROFILED, "pretrain bf16 step",
+                      smi) as rec:
+        torch.cuda.reset_peak_memory_stats()
+        # run_cli sets the counts to 0 for the CLI: keep the phase's so far
+        before = {name: k.launches for name, k in kernels.items()}
+        model, text, secs, launches, _ = run_cli(pretrain_cli.main, argv)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        cli_ms, cli_loss = rec["ms"][:], rec["loss"][:]
+        marks, save_s = rec["marks"][:], rec["save"][:]
+        scales["step 30"] = pointmap_scale(model, fixed[0])
+        t0 = time.time()
+        _, hist = trainer.train_loop(
+            model, cfg, iter(fixed[:1] * PRETRAIN_STEPS + fixed),
+            n_steps=PRETRAIN_RESUME_TO, log_every=1,
+            output_dir=str(out_dir), compute_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        resume_s = time.time() - t0
+    scales["step 35"] = pointmap_scale(model, fixed[0])
+    if len(cli_ms) != PRETRAIN_STEPS or len(save_s) != 1:
+        fail(f"pretrain: the CLI ran {len(cli_ms)} timed optimizer steps and "
+             f"{len(save_s)} saves, expected {PRETRAIN_STEPS} and 1")
+    if len(rec["load"]) != 1 or len(rec["ms"]) != PRETRAIN_RESUME_TO:
+        fail(f"pretrain resume: {len(rec['load'])} loads and "
+             f"{len(rec['ms']) - PRETRAIN_STEPS} timed steps, expected 1 and "
+             f"{PRETRAIN_RESUME_TO - PRETRAIN_STEPS}")
+    if rec["profile"]["busy_ms"] <= 0:
+        fail("pretrain: the profiler saw no device time in steps "
+             f"{PRETRAIN_PROFILED}")
+
+    ckpt = out_dir / "checkpoint-last.npz"
+    tail = cli_ms[-20:]
+    med = statistics.median(tail)
+    loop_ms = [(b - a) * 1e3 for a, b in zip(marks[-21:-1], marks[-20:])]
+    hist_line = [ln for ln in text.splitlines() if "done" in ln]
+    log(f"pretrain cli.pretrain [{smi}]: {PRETRAIN_STEPS} steps of "
+        f"{n_pairs} pairs ({PRETRAIN_BATCH} x accum {PRETRAIN_ACCUM}) "
+        f"at {PRETRAIN_W}x{PRETRAIN_H}, bf16, mast3r_finetune with "
+        f"{PRETRAIN_CORRES} correspondences, colour jitter, 4 workers, "
+        f"steps {PRETRAIN_PROFILED[0]}-{PRETRAIN_PROFILED[-1]} profiled: "
+        f"{secs:.1f} s in all; "
+        f"{hist_line[0] if hist_line else 'no done line'}")
+    log(f"pretrain step ms (synchronised, last 20) [{smi}]: median "
+        f"{med:.2f}, min {min(tail):.2f}, max {max(tail):.2f}; first "
+        f"{cli_ms[0]:.1f}; loop ms per step (data included, last 20) "
+        f"median {statistics.median(loop_ms):.2f}, max {max(loop_ms):.2f}")
+    log(f"pretrain FLOP (from the config, 2 x MACs of matmuls and "
+        f"convs): forward of one {PRETRAIN_W}x{PRETRAIN_H} pair "
+        f"{flops['total'] / 1e12:.3f} TFLOP (encoder "
+        f"{flops['encoder'] / 1e12:.3f}, decoder "
+        f"{flops['decoder'] / 1e12:.3f}, heads "
+        f"{flops['heads'] / 1e12:.3f}); a step (3 x forward x "
+        f"{n_pairs} pairs) {train_flops / 1e12:.2f} TFLOP")
+    log(f"pretrain rates [{smi}]: {n_pairs / (med / 1e3):.1f} pairs/s, "
+        f"{train_flops / (med / 1e3) / 1e12:.1f} TFLOP/s achieved "
+        f"({100 * train_flops / (med / 1e3) / BF16_PEAK:.1f}% of the "
+        f"989 TFLOP/s dense bf16 peak); peak card memory {peak_gb:.2f} "
+        f"GB; checkpoint-last.npz {ckpt.stat().st_size / 1e9:.2f} GB "
+        f"saved in {save_s[0]:.1f} s")
+    if any(v for v in launches.values()):
+        fail(f"pretrain launched compositor kernels: {launches}")
+    if not ckpt.is_file():
+        fail("pretrain: no checkpoint-last.npz")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        fail("pretrain: the masters are not float32")
+
+    steps = [s for s, _ in hist]
+    log(f"pretrain resume [{smi}]: checkpoint-last.npz loaded in "
+        f"{rec['load'][0]:.1f} s, history steps {steps}, losses "
+        + ", ".join(f"{m['loss']:.4g}" for _, m in hist)
+        + f"; {resume_s:.1f} s with the save ({rec['save'][-1]:.1f} s)")
+    if steps != list(range(PRETRAIN_STEPS + 1, PRETRAIN_RESUME_TO + 1)):
+        fail(f"pretrain resume: history steps {steps}, expected "
+             f"{PRETRAIN_STEPS + 1}..{PRETRAIN_RESUME_TO}")
+    del model, fixed
+    torch.cuda.empty_cache()
+
+    # ---- the loss curve of the timed run and its resume ----
+    first, last = cli_loss[0], cli_loss[-1]
+    head, tail5 = np.mean(cli_loss[:5]), np.mean(cli_loss[-5:])
+    log(f"pretrain loss [{smi}]: first {first:.6g}, last {last:.6g}; mean "
+        f"of the first 5 {head:.6g}, of the last 5 {tail5:.6g}; every "
+        f"step's loss finite: {bool(np.isfinite(rec['loss']).all())} "
+        f"({len(rec['loss'])} steps, the profiled ones included)")
+    log("pretrain pointmap scale (max |pts3d| of fixed batch 1, float32 "
+        "forward): " + ", ".join(f"{k} {v:.4g}" for k, v in scales.items()))
+    if not (np.isfinite(rec["loss"]).all() and last < first
+            and tail5 < head):
+        fail("pretrain: the loss did not fall or is not finite")
+    launches = {name: before[name] + k.launches
+                for name, k in kernels.items()}
+    log(f"phase 10 [{smi}]: {time.time() - t_phase:.1f} s; compositor "
+        f"launches {launches}")
+    if any(launches.values()):
+        fail(f"phase 10 launched compositor kernels: {launches}")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
 
     # ---- phase 1: card ---------------------------------------------------
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     csrc = REPO / "instantsplat_tpu_torch" / "csrc"
@@ -2600,23 +2994,36 @@ def main():
         log("steady ms/iter by backend: " + ", ".join(
             f"{k} {v:.2f}" for k, v in steady.items()))
 
+        log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 5: the training shape, trained scene ------------------
         rows = training_shape(params, cam, dev, path_launches)
 
+        log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 6: stages 3 and 5 on the dense run's model ------------
         stages_3_and_5(scene, Path(tmp) / "dense", dev, smi)
 
+        log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 7: stage 1 on copies of the dataset -------------------
         oracle, mast3r = stage_1(scene, Path(tmp), dev, smi)
 
+        log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 8: the rest of the toolchain on the oracle scene ------
         phase8 = stage_tools(oracle, Path(tmp), dev, smi)
 
         # ---- phase 9: the sparse-alignment family ------------------------
-        phase9 = stage_sparse(params, cams, mast3r, Path(tmp), dev, smi)
+        log(f"{time.time() - t_start:.0f} s since the start")
+        phase9 = stage_sparse(params, cams, mast3r[:3], Path(tmp), dev, smi)
+        host_model = mast3r[3]
+        del mast3r, params
+
+        # ---- phase 10: MASt3R pre-training at full width -----------------
+        log(f"{time.time() - t_start:.0f} s since the start")
+        phase10 = stage_pretrain(host_model, Path(tmp), dev, smi)
         for row in rows:
             row["launches_phase8"] = phase8[row["name"].split()[0]]
             row["launches_phase9"] = phase9[row["name"].split()[0]]
+            row["launches_phase10"] = phase10[row["name"].split()[0]]
+        log(f"{time.time() - t_start:.0f} s since the start")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -82,11 +82,15 @@ def mast3r_from_numpy(tree) -> dict:
     HWIO (cin, cout) -> torch's [cin, cout, kh, kw]."""
     sd = {}
 
-    def put(name, a):
-        sd[name] = torch.as_tensor(np.ascontiguousarray(a, np.float32))
+    def put(name, a, perm=None):
+        # a read-only array (a JAX array's view) is copied first; the
+        # layout change runs in torch (blocked and threaded: several
+        # times numpy's speed on ViT-L's matrices)
+        t = torch.from_numpy(np.require(a, np.float32, ["W"]))
+        sd[name] = t.permute(perm).contiguous() if perm else t
 
     def lin(name, p):
-        put(f"{name}.weight", np.asarray(p["w"]).T)
+        put(f"{name}.weight", p["w"], (1, 0))
         put(f"{name}.bias", p["b"])
 
     def ln(name, p):
@@ -94,9 +98,8 @@ def mast3r_from_numpy(tree) -> dict:
         put(f"{name}.bias", p["bias"])
 
     def conv(name, p, transpose=False):
-        w = np.asarray(p["w"])
-        put(f"{name}.weight", w.transpose((2, 3, 0, 1) if transpose
-                                          else (3, 2, 0, 1)))
+        put(f"{name}.weight", p["w"],
+            (2, 3, 0, 1) if transpose else (3, 2, 0, 1))
         if "b" in p:
             put(f"{name}.bias", p["b"])
 
@@ -145,3 +148,96 @@ def mast3r_from_numpy(tree) -> dict:
         lin(f"{pre}.head_local_features.fc1", lf["fc1"])
         lin(f"{pre}.head_local_features.fc2", lf["fc2"])
     return sd
+
+
+def mast3r_to_numpy(state_dict) -> dict:
+    """Inverse of `mast3r_from_numpy`: a MASt3R state dict (upstream key
+    names, torch layouts; tensors or arrays) -> the JAX parameter tree of
+    numpy float32 arrays (linears [din, dout], convs HWIO, the
+    transposed-conv kernels of DPT branches 0 and 1 from [cin, cout, kh,
+    kw], LayerNorm scale/bias). The layout maps only move elements, so
+    they serve Adam's moments as well as the parameters."""
+    def get(name, perm=None):
+        a = state_dict[name]
+        t = (a.detach() if torch.is_tensor(a)
+             else torch.from_numpy(np.require(a, np.float32, ["W"])))
+        t = t.float()
+        # the layout change runs in torch, on the tensor's device; a copy
+        # either way (a CPU tensor's numpy() would share its memory)
+        t = t.permute(perm).contiguous() if perm else t.clone()
+        return t.cpu().numpy()
+
+    def lin(name):
+        return {"w": get(f"{name}.weight", (1, 0)), "b": get(f"{name}.bias")}
+
+    def ln(name):
+        return {"scale": get(f"{name}.weight"), "bias": get(f"{name}.bias")}
+
+    def conv(name, transpose=False):
+        p = {"w": get(f"{name}.weight",
+                      (2, 3, 0, 1) if transpose else (2, 3, 1, 0))}
+        if f"{name}.bias" in state_dict:
+            p["b"] = get(f"{name}.bias")
+        return p
+
+    def count(prefix):
+        return len({k.split(".")[1] for k in state_dict
+                    if k.startswith(prefix + ".")})
+
+    def block(pre, cross):
+        p = {"norm1": ln(f"{pre}.norm1"),
+             "attn": {"qkv": lin(f"{pre}.attn.qkv"),
+                      "proj": lin(f"{pre}.attn.proj")},
+             "norm2": ln(f"{pre}.norm2"),
+             "mlp": {"fc1": lin(f"{pre}.mlp.fc1"),
+                     "fc2": lin(f"{pre}.mlp.fc2")}}
+        if cross:
+            p["norm3"] = ln(f"{pre}.norm3")
+            p["norm_y"] = ln(f"{pre}.norm_y")
+            p["cross_attn"] = {k: lin(f"{pre}.cross_attn.{k}")
+                               for k in ("projq", "projk", "projv", "proj")}
+        return p
+
+    def head(n):
+        pre = f"downstream_head{n}.dpt"
+        act = []
+        for i in range(4):
+            branch = {"project": conv(f"{pre}.act_postprocess.{i}.0")}
+            if f"{pre}.act_postprocess.{i}.1.weight" in state_dict:
+                branch["resample"] = conv(f"{pre}.act_postprocess.{i}.1",
+                                          transpose=i in (0, 1))
+            act.append(branch)
+        refine = []
+        for i in range(4):
+            rp = f"{pre}.scratch.refinenet{i + 1}"
+            refine.append({
+                key: {"conv1": conv(f"{rp}.{unit}.conv1"),
+                      "conv2": conv(f"{rp}.{unit}.conv2")}
+                for unit, key in (("resConfUnit1", "res1"),
+                                  ("resConfUnit2", "res2"))})
+            refine[-1]["out_conv"] = conv(f"{rp}.out_conv")
+        lf = f"downstream_head{n}.head_local_features"
+        return {"dpt": {
+            "act": act,
+            "layer_rn": [conv(f"{pre}.scratch.layer{i + 1}_rn")
+                         for i in range(4)],
+            "refine": refine,
+            "head": {"conv1": conv(f"{pre}.head.0"),
+                     "conv2": conv(f"{pre}.head.2")}},
+            "local_features": {"fc1": lin(f"{lf}.fc1"),
+                               "fc2": lin(f"{lf}.fc2")}}
+
+    return {
+        "patch_embed": conv("patch_embed.proj"),
+        "enc_blocks": [block(f"enc_blocks.{i}", False)
+                       for i in range(count("enc_blocks"))],
+        "enc_norm": ln("enc_norm"),
+        "decoder_embed": lin("decoder_embed"),
+        "dec_blocks": [block(f"dec_blocks.{i}", True)
+                       for i in range(count("dec_blocks"))],
+        "dec_blocks2": [block(f"dec_blocks2.{i}", True)
+                        for i in range(count("dec_blocks2"))],
+        "dec_norm": ln("dec_norm"),
+        "head1": head(1),
+        "head2": head(2),
+    }

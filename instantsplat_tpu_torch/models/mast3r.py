@@ -583,3 +583,14 @@ def build_model(ckpt_path: str, cfg: MASt3RConfig = MASt3RConfig(),
     else:
         load_checkpoint(ckpt_path, model)
     return model.cast(dtype) if dtype is not None else model
+
+
+def build_trainable(ckpt_path: str, cfg: MASt3RConfig = MASt3RConfig(),
+                    device="cuda") -> MASt3R:
+    """The training counterpart of `build_model`: float32 master
+    parameters that require grad, on `device`, from "random:SEED" (the
+    JAX package's `init_params(cfg, SEED)`) or an upstream .pth. Mixed
+    precision is the trainer's business (bf16 copies of these masters per
+    step), not the module's."""
+    model = build_model(ckpt_path, cfg, device=device)
+    return model.float().requires_grad_(True)

@@ -3,9 +3,10 @@
 paths on the card, stage 1's TINY MASt3R and golden aligner case on the
 card against the CPU, init_test_pose on the card against the CPU, a
 live viewer render on the card, and the sparse-alignment family:
-matching and sparse alignment on the card against the CPU, and a
-densification followed by a dense train step on the card. Run them on a
-machine with a card:
+matching and sparse alignment on the card against the CPU, a
+densification followed by a dense train step on the card, and
+cli.pretrain's TINY training step (float32 card against CPU, bf16, a
+checkpoint round trip). Run them on a machine with a card:
 
     python -m pytest tests/ -m gpu -q
 
@@ -619,3 +620,91 @@ def test_densify_then_train_step_on_card(cuda):
     assert np.isfinite(float(out["loss"]))
     assert (RP.K1.launches, RP.K2.launches) == (before[0] + 1,
                                                 before[1] + 1)
+
+
+def _pretrain_batch(seed):
+    """cli.pretrain's TINY model's input at 32x48: trainer.synthetic_batch
+    plus seeded GT correspondences (the MASt3R fine-tuning loss)."""
+    from instantsplat_tpu_torch.train_dust3r.trainer import synthetic_batch
+
+    b = synthetic_batch(None, batch=2, h=32, w=48, seed=seed)
+    rng = np.random.default_rng(100 + seed)
+    xy = np.stack([rng.integers(0, 48, (2, 24)),
+                   rng.integers(0, 32, (2, 24))], -1).astype(np.int32)
+    b["gt1"]["corres"] = torch.from_numpy(xy)
+    b["gt2"]["corres"] = torch.from_numpy(np.clip(
+        xy + rng.integers(-2, 3, xy.shape), 0, [47, 31]).astype(np.int32))
+    b["gt1"]["valid_corres"] = torch.from_numpy(rng.random((2, 24)) < 0.8)
+    return b
+
+
+def _pretrain_steps(device, n, compute_dtype=None, accum_iter=1):
+    from instantsplat_tpu_torch.cli.pretrain import TINY
+    from instantsplat_tpu_torch.models import mast3r
+    from instantsplat_tpu_torch.train_dust3r import losses, trainer
+
+    cfg = mast3r.MASt3RConfig(**TINY)
+    model = mast3r.build_trainable("random:0", cfg, device=device)
+    init, step, _ = trainer.make_dp_train_step(
+        cfg, loss_fn=losses.mast3r_finetune_loss, base_lr=5e-4,
+        warmup_steps=1, total_steps=4, compute_dtype=compute_dtype,
+        accum_iter=accum_iter)
+    state = init(model)
+    losses_ = []
+    for s in range(n):
+        state, met = step(state, _pretrain_batch(s))
+        losses_.append(float(met["loss"]))
+    return state, losses_
+
+
+def test_pretrain_tiny_step_on_card_matches_cpu(cuda):
+    """Three float32 steps of cli.pretrain's TINY model (TF32 off) on the
+    card against the CPU: losses within 1e-4 relative, every parameter
+    within 1e-3 relative L2. Not 1e-4: the key biases' gradients are
+    ~1e-6, so their summation order (cuBLAS against oneDNN) moves their
+    Adam steps by a visible share (2.1e-4 relative L2 on an H100 after
+    three steps; ROADMAP.md §3, Adam amplifies rounding)."""
+    card, lc = _pretrain_steps(cuda, 3)
+    cpu, lp = _pretrain_steps("cpu", 3)
+    np.testing.assert_allclose(lc, lp, rtol=1e-4)
+    for k, p in cpu["params"].items():
+        q = card["params"][k].detach().cpu()
+        err = float(torch.linalg.norm(q - p.detach())) / max(
+            float(torch.linalg.norm(p.detach())), 1e-6)
+        assert err <= 1e-3, (k, err)
+
+
+def test_pretrain_bf16_step_on_card(cuda):
+    """bf16 steps on the card: finite, float32 masters and moments, the
+    loss within 2e-2 of the float32 step's."""
+    state, l16 = _pretrain_steps(cuda, 2, compute_dtype=torch.bfloat16,
+                                 accum_iter=1)
+    _, l32 = _pretrain_steps(cuda, 2)
+    assert np.isfinite(l16).all()
+    assert all(p.dtype == torch.float32 and p.is_cuda
+               for p in state["params"].values())
+    assert all(m.dtype == torch.float32 for m in state["v"].values())
+    np.testing.assert_allclose(l16, l32, rtol=2e-2)
+
+
+def test_pretrain_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A checkpoint written from the card resumes on the card and on the
+    CPU with every tensor equal, and the step."""
+    from instantsplat_tpu_torch.cli.pretrain import TINY
+    from instantsplat_tpu_torch.models import mast3r
+    from instantsplat_tpu_torch.train_dust3r import trainer
+
+    state, _ = _pretrain_steps(cuda, 2)
+    path = tmp_path / "checkpoint-last.npz"
+    trainer.save_pretrain_checkpoint(path, state)
+    cfg = mast3r.MASt3RConfig(**TINY)
+    for dev in (cuda, torch.device("cpu")):
+        init, _, _ = trainer.make_dp_train_step(cfg)
+        back = trainer.load_pretrain_checkpoint(
+            path, init(mast3r.build_trainable("random:1", cfg, device=dev)))
+        assert back["step"] == 2
+        for group in ("params", "m", "v"):
+            for k, t in state[group].items():
+                assert back[group][k].device.type == dev.type
+                torch.testing.assert_close(back[group][k].cpu(),
+                                           t.detach().cpu(), rtol=0, atol=0)
