@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's stages 1, 2, 3 and 5, the tools
 around them (init_test_pose, run_eval, run_infer, the viewer, the
-validation sweep, the demo), the MASt3R sparse-alignment family and
-MASt3R pre-training, on one NVIDIA card and check them.
+validation sweep, the demo), the MASt3R sparse-alignment family, MASt3R
+pre-training and the multi-device layer, on one NVIDIA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -167,12 +168,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    seconds; (e) 5 float32 steps at the same shape. The pointmap scale
    (max |pts3d|) is printed at the start, at step 30 and at step 35. KR
    and K1-K6 must launch 0 times over the phase.
+11. The multi-device layer (parallel/) on the one card: NCCL refuses two
+   ranks on one device, so (a) every rank's local part of the sharded
+   renders runs here, for 2, 3, 4 and 5 virtual ranks on phase 4's model
+   at 512x384 (384 rows divide by 2, 3 and 4; 5 gives ragged 77-row
+   blocks): row blocks through KR/K1/K2 and through K3/K4 (capacities
+   sized over the blocks), depth slices of the sorted splats (padded to a
+   multiple of the ranks) and the 2x2 hybrid through KR/K1/K2, joined
+   with the module's own join and merge code and held to the one-device
+   render (rgb and alpha within 5e-4, depth within 5e-4 of its range,
+   d(packed) within 1e-3 relative L2); (b) a child process
+   (`python -m chip_smoke --phase11-rank <tmp>`) brings up a one-rank
+   NCCL group and drives the library's entry points against their
+   one-device runs: train_joint(mesh=) 50 iterations on each shard axis
+   (loss curves within LOSS_RTOL) and 10 sharded steps under
+   torch.profiler (the card's busy share), refine_poses_sharded on phase
+   6's twelve test views (50 steps), align(mesh=) on phase 7's oracle
+   pairs (300 iterations), and 3 float32 DDP and FSDP steps of the
+   full-width MASt3R from phase 10's weights (2 pairs at 224x224, losses
+   within 1e-4). KR, K1, K2, K3 and K4 must launch in the phase.
 
 The last lines are one JSON object {"kernels": [...]} with seven entries
 (each with `launches`, from its own path's run in phase 4,
 `launches_phase8`, from phase 8's in-process runs: its subprocess stages
 count in their own processes, `launches_phase9`, from phase 9's
-densification check, and `launches_phase10`, 0 for every kernel), the
+densification check, `launches_phase10`, 0 for every kernel, and
+`launches_phase11`, phase 11's in both of its processes), the
 nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
@@ -311,6 +332,17 @@ PRETRAIN_LEAVES = (
     "dec_blocks2.11.mlp.fc1.weight", "downstream_head1.dpt.head.2.weight",
     "downstream_head2.head_local_features.fc2.weight")
 BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+# phase 11: virtual ranks on the one card (384 rows divide by 2, 3 and 4;
+# 5 ranks make ragged 77-row blocks, the last one padded)
+P11_WORLDS = (2, 3, 4, 5)
+P11_IMAGE_ATOL = 5e-4
+P11_GRAD_RTOL = 1e-3
+P11_TRAIN_ITERS = 50
+P11_REFINE_ITERS = 50
+P11_PRETRAIN_STEPS = 3
+P11_PRETRAIN_HW = 224  # phase 10's float32 micro-batch side
+P11_PRETRAIN_RTOL = 1e-4
+P11_LIMIT_S = 600  # the one-rank group's child process
 
 
 def fail(msg: str):
@@ -2846,10 +2878,360 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 11: the multi-device layer
+# --------------------------------------------------------------------------
+
+
+def virtual_ranks(params, cam, dev, smi: str):
+    """Phase 11 (a): every rank's local part of the sharded renders
+    (parallel/sharding.py) run on this one card for world sizes
+    P11_WORLDS, joined with the module's own join and merge code, and
+    held to the one-device render: rgb and alpha within P11_IMAGE_ATOL,
+    depth within P11_IMAGE_ATOL of its range, d(packed) within
+    P11_GRAD_RTOL relative L2. Row blocks through KR/K1/K2 and through
+    K3/K4 (capacities sized over the blocks), depth slices and the 2x2
+    hybrid through KR/K1/K2."""
+    import torch
+
+    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
+    from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
+    from instantsplat_tpu_torch.ops.rasterize import composite_out
+    from instantsplat_tpu_torch.parallel import sharding as S
+    from instantsplat_tpu_torch.render.driver import (prepare_packed_splats,
+                                                       splat_valid)
+
+    with torch.no_grad():
+        packed, _ = prepare_packed_splats(
+            params, cam.pose, cam.fx, cam.fy, cam.cx, cam.cy, 1.0,
+            params.max_sh_degree, H, W)
+    bg = torch.zeros(3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cot = [torch.randn(shape, generator=gen, device=dev)
+           for shape in ((H, W, 3), (H, W), (H, W))]
+
+    def run(fn):
+        """fn(packed) -> (rgb, alpha, depth); -> the three images and
+        d(packed) of sum(image * cotangent)."""
+        p = packed.clone().requires_grad_(True)
+        out = fn(p)
+        loss = sum((o * c).sum() for o, c in zip(out, cot))
+        (d,) = torch.autograd.grad(loss, [p])
+        return [o.detach() for o in out], d
+
+    def one(p):
+        return composite_out(*RP.composite_packed(p, H, W), bg)
+
+    ref, ref_d = run(one)
+    depth_range = float(ref[2].abs().max())
+
+    def rows(backend, n):
+        def fn(p):
+            parts = [S.rows_local(p, r, n, H, W, backend) for r in range(n)]
+            acc, tfin = S.join_rows(torch.stack([a for a, _ in parts]),
+                                    torch.stack([t for _, t in parts]), H)
+            return composite_out(acc, tfin, bg)
+        return fn
+
+    def slices(n):
+        def fn(p):
+            p = S.pad_slices(p, n)
+            parts = [S.slice_local(p, r, n, H, W) for r in range(n)]
+            return S.merge_depth_slices(torch.stack([a for a, _ in parts]),
+                                        torch.stack([t for _, t in parts]),
+                                        bg)
+        return fn
+
+    def hybrid(n_pix, n_gauss):
+        def fn(p):
+            p = S.pad_slices(p, n_gauss)
+            blocks = []
+            for pi in range(n_pix):
+                parts = [S.tile_local(p, pi, n_pix, gi, n_gauss, H, W)
+                         for gi in range(n_gauss)]
+                rgb, alpha, depth = S.merge_depth_slices(
+                    torch.stack([a for a, _ in parts]),
+                    torch.stack([t for _, t in parts]), bg)
+                blocks.append(torch.cat([rgb, alpha[..., None],
+                                         depth[..., None]], -1))
+            img = torch.cat(blocks)[:H]
+            return img[..., :3], img[..., 3], img[..., 4]
+        return fn
+
+    def binned_caps(n):
+        """pallas-binned:CF:DL holding every block's lists."""
+        rows_n = S._padded_rows(H, n)
+        caps = []
+        for r in range(n):
+            q = S._shift_rows(packed, float(r * rows_n))
+            caps.append(RB.bin_requirements(q[:, :2], q[:, 2:5], q[:, 5],
+                                            splat_valid(q), rows_n, W))
+        cf, dl = map(max, zip(*caps))
+        return f"pallas-binned:{cf}:{dl}"
+
+    cases = []
+    for n in P11_WORLDS:
+        caps = binned_caps(n)
+        cases += [(f"rows dense x{n}", rows("pallas", n)),
+                  (f"rows {caps} x{n}", rows(caps, n)),
+                  (f"depth slices x{n}", slices(n))]
+    cases.append(("hybrid 2x2", hybrid(2, 2)))
+    one_ms = cuda_ms(lambda: one(packed), 10)
+    for tag, fn in cases:
+        out, d = run(fn)
+        e_rgb = float((out[0] - ref[0]).abs().max())
+        e_alpha = float((out[1] - ref[1]).abs().max())
+        e_depth = float((out[2] - ref[2]).abs().max())
+        e_grad = rel_l2(d, ref_d)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fn(packed), 10)
+        log(f"phase 11 virtual ranks {tag} [{smi}]: rgb max |d| "
+            f"{e_rgb:.3e}, alpha {e_alpha:.3e}, depth {e_depth:.3e} (range "
+            f"{depth_range:.3f}) against one device; d(packed) relative L2 "
+            f"{e_grad:.3e}; all ranks' forwards + join {ms:.3f} ms in "
+            f"sequence (one device {one_ms:.3f} ms)")
+        if not (e_rgb <= P11_IMAGE_ATOL and e_alpha <= P11_IMAGE_ATOL
+                and e_depth <= P11_IMAGE_ATOL * max(depth_range, 1.0)
+                and e_grad <= P11_GRAD_RTOL):
+            fail(f"phase 11 virtual ranks {tag}: differs from one device")
+
+
+def parallel_rank(tmp: Path):
+    """Phase 11 (b), in a child process started by `stage_parallel`: a
+    one-rank NCCL group through the library entry points, each against
+    its one-device run: train_joint(mesh=) for P11_TRAIN_ITERS iterations
+    on each shard axis (the loss curve within LOSS_RTOL, phase 4's rule),
+    refine_poses_sharded on phase 6's test views (P11_REFINE_ITERS steps;
+    poses within 1e-3, losses within 1e-3 relative: K2's atomics), align
+    (mesh=) on phase 7's oracle pairs (the card-against-CPU limits), and
+    P11_PRETRAIN_STEPS float32 DDP and FSDP steps of the full-width
+    MASt3R from phase 10's random:0 weights (losses within
+    P11_PRETRAIN_RTOL). Writes the kernels' launch counts to
+    <tmp>/phase11.json."""
+    import copy
+    import os
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from instantsplat_tpu_torch.data.scene import read_scene
+    from instantsplat_tpu_torch.init.aligner import GlobalAligner
+    from instantsplat_tpu_torch.init.pairs import make_pair_indices
+    from instantsplat_tpu_torch.models import mast3r
+    from instantsplat_tpu_torch.opt.gaussian_opt import (
+        GaussianOptimizer, OptimizationConfig)
+    from instantsplat_tpu_torch.parallel import (initialize_runtime,
+                                                 make_mesh,
+                                                 make_sharded_train_step)
+    from instantsplat_tpu_torch.parallel.runtime import STORE_ENV
+    from instantsplat_tpu_torch.pipelines.render_pipeline import (
+        refine_poses_sharded)
+    from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
+    from instantsplat_tpu_torch.pipelines.trainer import (TrainerConfig,
+                                                          train_joint)
+    from instantsplat_tpu_torch.train_dust3r import trainer as tt
+    from instantsplat_tpu_torch.utils import transforms as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.time()
+    initialize_runtime("cuda", init_method=f"file://{os.environ[STORE_ENV]}",
+                       world_size=1, rank=0)
+    mesh = make_mesh(1)
+    dev = torch.device("cuda")
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    log(f"phase 11 one-rank NCCL group [{smi}]: up in {time.time() - t0:.1f}"
+        f" s (backend {torch.distributed.get_backend()})")
+    scene = tmp / "scene"
+
+    # ---- train_joint on each shard axis against one device ----
+    opt_cfg = OptimizationConfig(pp_optimizer=True, optim_pose=True)
+    curves = {}
+    for axis in (None, "pixels", "gaussians"):
+        params, cams = initial_params(scene, dev)
+        torch.cuda.synchronize()
+        t = time.time()
+        _, _, hist = train_joint(
+            params, cams, opt_cfg=opt_cfg,
+            trainer_cfg=TrainerConfig(iterations=P11_TRAIN_ITERS,
+                                      backend="pallas", log_every=1,
+                                      shard_axis=axis or "pixels"),
+            mesh=None if axis is None else mesh)
+        torch.cuda.synchronize()
+        curves[axis] = np.array([m["loss"] for _, m in hist])
+        log(f"phase 11 train_joint mesh={axis and 'one rank'} axis={axis} "
+            f"[{smi}]: {P11_TRAIN_ITERS} iterations, "
+            f"{(time.time() - t) / P11_TRAIN_ITERS * 1e3:.2f} ms/iter, loss "
+            f"{curves[axis][0]:.5f} -> {curves[axis][-1]:.5f}")
+    for axis in ("pixels", "gaussians"):
+        d = float(np.max(np.abs(curves[axis] - curves[None]) / curves[None]))
+        log(f"phase 11 train_joint {axis}: loss curve max relative "
+            f"difference from one device {d:.3e} (limit {LOSS_RTOL})")
+        if not (d <= LOSS_RTOL and curves[axis][-1] < curves[axis][0]):
+            fail(f"phase 11 train_joint {axis}: off the one-device curve")
+    # the card's busy share over sharded steps
+    params, cams = initial_params(scene, dev)
+    opt = GaussianOptimizer(opt_cfg, total_iterations=P11_TRAIN_ITERS)
+    state = opt.init(params)
+    step = make_sharded_train_step(opt, cams, torch.zeros(3, device=dev),
+                                   0.2, mesh, backend="pallas")
+    for i in range(3):
+        float(step(params, state, i % 3, i + 1, 0)["loss"])
+    with profiled("phase 11 sharded train step (one rank)", "pallas", 10,
+                  top=6):
+        for i in range(10):
+            float(step(params, state, i % 3, i + 4, 0)["loss"])
+    del params, state, opt
+
+    # ---- refine_poses_sharded on phase 6's test views ----
+    params, _ = load_trained(tmp / "dense", -1, sh_degree=3, device=dev)
+    test = read_scene(scene, 3, split="test", device=dev)
+    poses0 = T.matrix_to_pose_np(test.poses_w2c)
+    gts = torch.stack([c.image for c in test.cameras])
+    intr = torch.stack([torch.stack([c.fx, c.fy, c.cx, c.cy])
+                        for c in test.cameras])
+    got = {}
+    for tag, m in (("sharded", mesh), ("per view", None)):
+        torch.cuda.synchronize()
+        t = time.time()
+        got[tag] = refine_poses_sharded(
+            params, test.cameras[0], poses0, gts, m, num_iter=P11_REFINE_ITERS,
+            intrinsics=intr)
+        secs = time.time() - t
+        log(f"phase 11 refine_poses_sharded mesh={tag} [{smi}]: "
+            f"{len(poses0)} views x {P11_REFINE_ITERS} steps in {secs:.2f} s "
+            f"({secs / len(poses0) / P11_REFINE_ITERS * 1e3:.2f} ms a step)")
+    dp = float(np.abs(got["sharded"][0] - got["per view"][0]).max())
+    dl = float(np.max(np.abs(got["sharded"][1] - got["per view"][1])
+                      / got["per view"][1]))
+    log(f"phase 11 refine: poses max |d| {dp:.3e}, best losses max relative "
+        f"{dl:.3e} (limits 1e-3)")
+    if not (dp <= 1e-3 and dl <= 1e-3):
+        fail("phase 11 refine_poses_sharded: differs from the per-view path")
+    del params
+
+    # ---- align(mesh=) on phase 7's oracle pairs ----
+    preds = oracle_pointmap_fn(TRAIN_FRAMES, 0.9 * W)(
+        None, make_pair_indices(3, "complete", symmetrize=True))
+    res = {}
+    for tag, m in (("sharded", mesh), ("one device", None)):
+        al = GlobalAligner(preds, device=dev)
+        al.init_mst(focal_avg=True)
+        t = time.time()
+        loss = al.align(niter=ALIGN_ITERS, mesh=m)
+        res[tag] = (loss, al.get_im_poses())
+        log(f"phase 11 align mesh={tag} [{smi}]: {ALIGN_ITERS} iterations, "
+            f"{(time.time() - t) / ALIGN_ITERS * 1e3:.2f} ms each, loss "
+            f"{loss:.6e}")
+    d_loss = abs(res["sharded"][0] - res["one device"][0]) / \
+        res["one device"][0]
+    d_pose = float(np.abs(res["sharded"][1] - res["one device"][1]).max())
+    log(f"phase 11 align: loss relative {d_loss:.3e} (limit "
+        f"{ALIGN_LOSS_RTOL:g}), poses max |d| {d_pose:.3e} (limit "
+        f"{ALIGN_POSE_ATOL:g})")
+    if not (d_loss <= ALIGN_LOSS_RTOL and d_pose <= ALIGN_POSE_ATOL):
+        fail("phase 11 align(mesh=): differs from one device")
+
+    # ---- float32 DDP / FSDP steps of the full-width MASt3R ----
+    cfg = mast3r.MASt3RConfig()
+    host = mast3r.build_trainable(str(tmp / "random0.pth"), cfg,
+                                  device="cpu")
+    batches = [tt.synthetic_batch(cfg, batch=2, h=P11_PRETRAIN_HW,
+                                  w=P11_PRETRAIN_HW, seed=s)
+               for s in range(P11_PRETRAIN_STEPS)]
+    losses = {}
+    for tag, m, fsdp in (("one device", None, False), ("DDP", mesh, False),
+                         ("FSDP", mesh, True)):
+        model = copy.deepcopy(host).to(dev)
+        init, step_fn, _ = tt.make_dp_train_step(cfg, mesh=m, fsdp=fsdp)
+        state = init(model)
+        ms = []
+        losses[tag] = []
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.time()
+            state, metrics = step_fn(state, b)
+            losses[tag].append(float(metrics["loss"]))
+            ms.append((time.time() - t) * 1e3)
+        log(f"phase 11 pretrain float32 {tag} [{smi}]: {P11_PRETRAIN_STEPS} "
+            f"steps of 2 pairs at {P11_PRETRAIN_HW}x{P11_PRETRAIN_HW}, ms "
+            + ", ".join(f"{v:.1f}" for v in ms) + "; losses "
+            + ", ".join(f"{v:.6g}" for v in losses[tag])
+            + "; peak card memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del model, state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for tag in ("DDP", "FSDP"):
+        d = max(abs(a - b) / abs(b) for a, b in
+                zip(losses[tag], losses["one device"]))
+        log(f"phase 11 pretrain {tag}: losses max relative difference from "
+            f"one device {d:.3e} (limit {P11_PRETRAIN_RTOL:g})")
+        if not d <= P11_PRETRAIN_RTOL:
+            fail(f"phase 11 pretrain {tag}: off the one-device step")
+    (tmp / "phase11.json").write_text(json.dumps(
+        {name: k.launches for name, k in kernels.items()}))
+    torch.distributed.destroy_process_group()
+
+
+def stage_parallel(scene: Path, tmp: Path, dev, smi: str):
+    """Phase 11: the multi-device layer on the one card. (a)
+    `virtual_ranks` on phase 4's model here; (b) `parallel_rank` in a
+    child process (a one-rank NCCL group). -> launches {KR, K1..K6} of
+    both."""
+    import torch
+
+    from instantsplat_tpu_torch.parallel import launch
+    from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
+    from instantsplat_tpu_torch.render import driver
+
+    t_phase = time.time()
+    driver._guard = driver._OverflowGuard()
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    params, _ = load_trained(tmp / "dense", -1, sh_degree=3, device=dev)
+    _, cams = initial_params(scene, dev)
+    virtual_ranks(params, cams[0], dev, smi)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"phase 11 (a) [{smi}]: {time.time() - t_phase:.1f} s; launches "
+        f"{launches}")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    try:
+        launch.spawn("chip_smoke", ["--phase11-rank", str(tmp)], 1,
+                     timeout=P11_LIMIT_S, cwd=str(REPO))
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 11 (b): {e}")
+    child = json.loads((tmp / "phase11.json").read_text())
+    log(f"phase 11 (b) [{smi}]: {time.time() - t0:.1f} s in the child "
+        f"process; its launches {child}")
+    launches = {k: launches[k] + child[k] for k in launches}
+    log(f"phase 11 [{smi}]: {time.time() - t_phase:.1f} s; launches "
+        f"{launches}")
+    if any(launches[k] == 0 for k in ("KR", "K1", "K2", "K3", "K4")):
+        fail(f"phase 11: a kernel of the sharded paths never launched "
+             f"({launches})")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
 
+    if sys.argv[1:2] == ["--phase11-rank"]:  # phase 11's child process
+        parallel_rank(Path(sys.argv[2]))
+        return
     # ---- phase 1: card ---------------------------------------------------
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3019,10 +3401,16 @@ def main():
         # ---- phase 10: MASt3R pre-training at full width -----------------
         log(f"{time.time() - t_start:.0f} s since the start")
         phase10 = stage_pretrain(host_model, Path(tmp), dev, smi)
+        del host_model
+
+        # ---- phase 11: the multi-device layer ----------------------------
+        log(f"{time.time() - t_start:.0f} s since the start")
+        phase11 = stage_parallel(scene, Path(tmp), dev, smi)
         for row in rows:
             row["launches_phase8"] = phase8[row["name"].split()[0]]
             row["launches_phase9"] = phase9[row["name"].split()[0]]
             row["launches_phase10"] = phase10[row["name"].split()[0]]
+            row["launches_phase11"] = phase11[row["name"].split()[0]]
         log(f"{time.time() - t_start:.0f} s since the start")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -16,7 +16,9 @@ the `auto` probe, the validation sweep and the live viewer), stage 3
 orchestration (`cli.run_eval`, `cli.run_infer`), `cli.demo`, and the
 MASt3R sparse-alignment toolset (`ops/matching`, `init/sparse_align`,
 `init/depth_refine`, `models/densify`, `data/colmap_db`, `data/exr` with
-its host C++ codec `csrc/exr_native.cpp`, the Blender reader).
+its host C++ codec `csrc/exr_native.cpp`, the Blender reader), MASt3R
+pre-training (`train_dust3r/`, `cli.pretrain`) and the multi-device layer
+(`parallel/`, on torch.distributed: one process per card).
 
 Entry points take an explicit `device` and default to "cuda". Asking for
 CUDA without a card raises; nothing falls back to the CPU.

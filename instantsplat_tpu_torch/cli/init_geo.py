@@ -40,7 +40,7 @@ def build_parser() -> ArgumentParser:
     # softmax accumulation and the head postprocess in f32
     parser.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     # pair-parallel inference and edge-sharded alignment over several
-    # devices: not ported yet
+    # devices (0 or 1 = one device, -1 = every local card)
     parser.add_argument("--n_devices", type=int, default=0)
     # accepted for drop-in compatibility with reference init_geo.py:137-144,
     # whose main() never consumes them either: documented no-ops
@@ -55,19 +55,28 @@ def main(argv=None):
 
     from instantsplat_tpu_torch import resolve_device
     from instantsplat_tpu_torch.models.mast3r_infer import make_pointmap_fn
+    from instantsplat_tpu_torch.parallel import launch, runtime
     from instantsplat_tpu_torch.pipelines.init_geo_pipeline import (
         run_init_geo)
 
     args = build_parser().parse_args(argv)
-    if args.n_devices:
-        raise NotImplementedError(
-            "--n_devices: pair-parallel inference and edge-sharded "
-            "alignment over several devices are not yet ported; run with "
-            "--n_devices 0 (one device)")
+    world = launch.run_ranks("instantsplat_tpu_torch.cli.init_geo", argv,
+                             args.n_devices, args.device)
+    if world is None:  # the spawned ranks ran the stage
+        return None
+    runtime.initialize_runtime(args.device)
     device = resolve_device(args.device)
+    mesh = None
+    if world > 1:
+        from instantsplat_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(world)
+        if runtime.is_main_process():
+            print(f"[init_geo] pair-DP inference + edge-sharded alignment "
+                  f"over {world} devices", flush=True)
     pointmap_fn = make_pointmap_fn(
         args.ckpt_path, batch_size=args.batch_size, device=device,
-        dtype=torch.bfloat16 if args.dtype == "bf16" else None)
+        dtype=torch.bfloat16 if args.dtype == "bf16" else None, mesh=mesh)
     aligner = run_init_geo(
         args.source_path, args.model_path, pointmap_fn,
         n_views=args.n_views, image_size=args.image_size,
@@ -76,8 +85,9 @@ def main(argv=None):
         conf_aware_ranking=args.conf_aware_ranking,
         depth_thre=args.depth_thre, co_vis_dsp=args.co_vis_dsp,
         max_pts=args.max_pts, infer_video=args.infer_video,
-        save_all_pts=True, device=device)
-    print(f"[init_geo] done -> {args.source_path}/sparse_{args.n_views}")
+        save_all_pts=True, device=device, mesh=mesh)
+    if runtime.is_main_process():
+        print(f"[init_geo] done -> {args.source_path}/sparse_{args.n_views}")
     return aligner
 
 

@@ -46,10 +46,12 @@ def main(argv=None):
     align, write) and the registration scale."""
     from instantsplat_tpu_torch import resolve_device
     from instantsplat_tpu_torch.models.mast3r_infer import make_pointmap_fn
+    from instantsplat_tpu_torch.parallel import initialize_runtime
     from instantsplat_tpu_torch.pipelines.init_test_pose_pipeline import (
         run_init_test_pose)
 
     args = build_parser().parse_args(argv)
+    initialize_runtime(args.device)  # a no-op in a single process
     device = resolve_device(args.device)
     # float32, as the JAX CLI passes no dtype (TF32 is off package-wide)
     pointmap_fn = make_pointmap_fn(args.ckpt_path,

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from argparse import ArgumentParser
 
+from instantsplat_tpu_torch.parallel import initialize_runtime
 from instantsplat_tpu_torch.pipelines.metrics_pipeline import run_metrics
 
 
@@ -26,6 +27,7 @@ def build_parser() -> ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    initialize_runtime(args.device)  # a no-op in a single process
     results = run_metrics(args.model_paths, source_path=args.source_path,
                           n_views=args.n_views, eval_pose=not args.no_pose,
                           device=args.device)

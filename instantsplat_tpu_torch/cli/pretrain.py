@@ -16,15 +16,17 @@ gradient accumulation:
 The spec uses the reference's --train_dataset arithmetic (`+` concat,
 `n @` resize, `n *` repeat) over the loaders of train_dust3r/loaders.py
 and PosedMultiViewDataset(...). Runs on CUDA by default; `--device cpu`
-runs on the CPU. A launch over several processes (WORLD_SIZE > 1) raises:
-data-parallel and FSDP training are not ported yet. Checkpoints are the
-JAX package's npz layout, so either package resumes the other's
-`checkpoint-last.npz`.
+runs on the CPU. Under torchrun (WORLD_SIZE > 1; rank r on cuda:r over
+NCCL, or gloo with `--device cpu`) the step is data parallel over
+gcd(WORLD_SIZE, batch_size) ranks, as the JAX CLI uses gcd(devices,
+batch_size) devices, and fully sharded with `--fsdp`; every rank reads
+the same batches and rank 0 writes the checkpoints and the log.
+Checkpoints are the JAX package's npz layout, so either package resumes
+the other's `checkpoint-last.npz`.
 """
 
 from __future__ import annotations
 
-import os
 from argparse import ArgumentParser
 
 CRITERIA = {
@@ -98,15 +100,14 @@ def build_parser() -> ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "a multi-process launch (WORLD_SIZE > 1): data-parallel and "
-            "FSDP pre-training are not yet ported; run one process")
+
+    import math
 
     import torch
 
     from instantsplat_tpu_torch import resolve_device
     from instantsplat_tpu_torch.models import mast3r
+    from instantsplat_tpu_torch.parallel import make_mesh, runtime
     from instantsplat_tpu_torch.train_dust3r import losses as L
     from instantsplat_tpu_torch.train_dust3r.datasets import prefetch_iter
     from instantsplat_tpu_torch.train_dust3r.loaders import make_dataset
@@ -116,7 +117,10 @@ def main(argv=None):
         train_loop,
     )
 
+    runtime.initialize_runtime(args.device)
     dev = resolve_device(args.device)
+    main_rank = runtime.is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
     cfg = mast3r.MASt3RConfig(**TINY) if args.tiny else mast3r.MASt3RConfig()
     if args.pretrained and args.pretrained.endswith(".pth"):
         model = mast3r.build_trainable(args.pretrained, cfg, device=dev)
@@ -130,12 +134,22 @@ def main(argv=None):
                 args.pretrained, dict(params=dict(model.named_parameters())))
 
     dataset = make_dataset(args.train_dataset)
-    print(f"[pretrain] dataset: {dataset!r} ({len(dataset)} pairs)")
+    say(f"[pretrain] dataset: {dataset!r} ({len(dataset)} pairs)")
 
-    # one device: no mesh, as the JAX CLI on one device
-    if args.fsdp:
-        print("[pretrain] --fsdp ignored: no device mesh "
-              "(single device or batch_size 1)")
+    # the DP step shares out the batch's leading axis: the mesh size must
+    # divide the per-step batch
+    world = runtime.world_size()
+    n_dev = math.gcd(world, args.batch_size)
+    mesh = make_mesh(n_dev) if n_dev > 1 else None
+    if n_dev < world:
+        say(f"[pretrain] batch_size {args.batch_size} uses {n_dev} of "
+            f"{world} devices (DP shards the batch axis; pick batch_size % "
+            "n_devices == 0 to use all)")
+    if args.fsdp and mesh is None:
+        say("[pretrain] --fsdp ignored: no device mesh "
+            "(single device or batch_size 1)")
+    if runtime.rank() >= n_dev:  # outside the mesh: idle, as in JAX
+        return model
 
     def batches():
         it = dataset.batches(args.batch_size, seed=args.seed,
@@ -165,7 +179,7 @@ def main(argv=None):
 
     loss_fn = getattr(L, CRITERIA[args.criterion])
     model, history = train_loop(
-        model, cfg, batches(), n_steps=args.steps,
+        model, cfg, batches(), mesh=mesh, n_steps=args.steps,
         log_every=args.print_freq, output_dir=args.output_dir,
         save_every=args.save_freq,
         keep_every=args.keep_freq or None,
@@ -176,8 +190,9 @@ def main(argv=None):
         weight_decay=args.weight_decay, loss_fn=loss_fn, alpha=args.alpha,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
         accum_iter=args.accum_iter,
+        fsdp=args.fsdp and mesh is not None,
     )
-    if history:
+    if history and main_rank:
         trains = [(s, m) for s, m in history if "loss" in m]
         evals = [(s, m) for s, m in history if "test_loss" in m]
         msg = "[pretrain] done:"

@@ -8,12 +8,16 @@ instantsplat_tpu/cli/render.py).
 
 The saved <out>/cfg_args fills in what the command line leaves out. Runs
 on CUDA by default; `--device cpu` runs the plain PyTorch path.
+`--n_devices N` refines the test views' poses over N ranks (-1 = every
+local card; spawned here unless under torchrun, parallel/launch.py); rank
+0 writes the renders.
 """
 
 from __future__ import annotations
 
 from argparse import ArgumentParser
 
+from instantsplat_tpu_torch.parallel import launch, runtime
 from instantsplat_tpu_torch.pipelines import config as C
 from instantsplat_tpu_torch.pipelines.render_pipeline import run_render
 
@@ -33,7 +37,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--infer_video", action="store_true")
     parser.add_argument("--optim_test_pose_iter", type=int, default=500)
     parser.add_argument("--test_fps", action="store_true")
-    # views-data-parallel refinement over several devices: not ported yet
+    # views-data-parallel test-pose refinement (0 or 1 = one device, -1 =
+    # every local card)
     parser.add_argument("--n_devices", type=int, default=0)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return parser
@@ -41,10 +46,19 @@ def build_parser() -> ArgumentParser:
 
 def main(argv=None):
     args = C.get_combined_args(build_parser(), argv)
-    if args.n_devices:
-        raise NotImplementedError(
-            "--n_devices: pose refinement over several devices is not yet "
-            "ported; run with --n_devices 0 (one device)")
+    world = launch.run_ranks("instantsplat_tpu_torch.cli.render", argv,
+                             args.n_devices, args.device)
+    if world is None:  # the spawned ranks ran the stage
+        return None
+    runtime.initialize_runtime(args.device)
+    mesh = None
+    if world > 1:
+        from instantsplat_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(world)
+        if runtime.is_main_process():
+            print(f"[render] views-DP pose refinement over {world} devices",
+                  flush=True)
     model = C.extract_group(args, C.ModelParams)
     it = run_render(
         model,
@@ -56,8 +70,10 @@ def main(argv=None):
         test_fps=args.test_fps,
         backend=args.backend,
         device=args.device,
+        mesh=mesh,
     )
-    print(f"[render] done (iteration {it}) -> {model.model_path}")
+    if runtime.is_main_process():
+        print(f"[render] done (iteration {it}) -> {model.model_path}")
     return it
 
 

@@ -124,8 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--jobs", type=int, default=1,
                     help="concurrent scenes (one card slot each)")
     ap.add_argument("--n_devices", type=int, default=0,
-                    help="shard one scene over several cards: not ported "
-                         "yet, only 0 is accepted")
+                    help="shard ONE scene over this many cards (pair-DP "
+                         "init_geo, sharded train renders, views-DP test "
+                         "refinement; -1 = every local card)")
     ap.add_argument("--optim_test_pose_iter", type=int, default=500,
                     help="test-time pose refinement iterations per view "
                          "(reference render.py:260)")
@@ -138,13 +139,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.n_devices:
-        raise NotImplementedError(
-            "--n_devices: one scene sharded over several cards is not yet "
-            "ported; run with --n_devices 0 (--jobs runs scenes in "
-            "parallel)")
-    return args
+    return build_parser().parse_args(argv)
 
 
 def scene_stages(args, scene):
@@ -156,6 +151,8 @@ def scene_stages(args, scene):
     out = Path(args.out) / args.dataset / scene / f"{args.n_views}_views"
     nv, it = str(args.n_views), str(args.iterations)
     dev = ["--device", args.device]
+    # as scripts/run_eval.py: init_geo, train and the test render shard
+    shard = ["--n_devices", str(args.n_devices)] if args.n_devices else []
     stages = []
     if not args.skip_init:
         stages.append((
@@ -163,18 +160,18 @@ def scene_stages(args, scene):
                   "--n_views", nv, "--ckpt_path", args.ckpt_path,
                   "--focal_avg", "--co_vis_dsp", "--conf_aware_ranking"]
             + (["--max_pts", str(args.max_pts)] if args.max_pts else [])
-            + dev, "01_init_geo.log"))
+            + shard + dev, "01_init_geo.log"))
     stages += [
         (py + [CLI + "train", "-s", str(src), "-m", str(out), "--n_views",
                nv, "--iterations", it, "--pp_optimizer", "--optim_pose"]
-         + dev, "02_train.log"),
+         + shard + dev, "02_train.log"),
         (py + [CLI + "render", "-s", str(src), "-m", str(out), "--n_views",
                nv, "--iteration", it, "--skip_test"] + dev,
          "03_render_train.log"),
         (py + [CLI + "render", "-s", str(src), "-m", str(out), "--n_views",
                nv, "--iteration", it, "--skip_train", "--eval",
                "--test_fps", "--optim_test_pose_iter",
-               str(args.optim_test_pose_iter)] + dev,
+               str(args.optim_test_pose_iter)] + shard + dev,
          "04_render_test.log"),
         (py + [CLI + "metrics", "-m", str(out), "-s", str(src), "--n_views",
                nv] + dev, "05_metrics.log"),

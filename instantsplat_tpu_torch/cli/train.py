@@ -8,6 +8,12 @@ Runs on CUDA by default; `--device cpu` runs the plain PyTorch path.
 `--test_iterations` runs the validation sweep over the train views at
 those (logged) iterations; `--enable_viewer` serves live renders to a
 SIBR viewer on `--ip`/`--port` (render/network_gui.py).
+
+`--n_devices N` shards every render over N ranks (`--shard_axis pixels`
+or `gaussians`; -1 = every local card): under torchrun N must equal
+WORLD_SIZE (or be -1); otherwise the CLI spawns the N ranks itself
+(parallel/launch.py). Rank r trains on cuda:r (NCCL), or on the CPU over
+gloo with `--device cpu`; rank 0 writes the artifacts.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 from argparse import ArgumentParser
 
 from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
+from instantsplat_tpu_torch.parallel import launch, runtime
 from instantsplat_tpu_torch.pipelines import config as C
 from instantsplat_tpu_torch.pipelines.train_pipeline import run_training
 from instantsplat_tpu_torch.pipelines.trainer import TrainerConfig
@@ -34,7 +41,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--test_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--start_checkpoint", type=str, default=None)
     parser.add_argument("--log_every", type=int, default=100)
-    # renders sharded over several devices: not ported yet
+    # renders sharded over several devices (0 or 1 = one device, -1 =
+    # every local card)
     parser.add_argument("--n_devices", type=int, default=0)
     parser.add_argument("--shard_axis", choices=["pixels", "gaussians"],
                         default="pixels")
@@ -55,15 +63,18 @@ def build_parser() -> ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.n_devices:
-        raise NotImplementedError(
-            "--n_devices: renders sharded over several devices are not yet "
-            "ported; run with --n_devices 0 (one device)")
+    world = launch.run_ranks("instantsplat_tpu_torch.cli.train", argv,
+                             args.n_devices, args.device)
+    if world is None:  # the spawned ranks ran the stage
+        return None
+    runtime.initialize_runtime(args.device)
+    main_rank = runtime.is_main_process()
     model = C.extract_group(args, C.ModelParams)
     opt = C.make_opt_config(args)
     trainer = TrainerConfig(iterations=args.iterations,
                             white_background=model.white_background,
-                            backend=args.backend, log_every=args.log_every)
+                            backend=args.backend, log_every=args.log_every,
+                            n_devices=world, shard_axis=args.shard_axis)
 
     def progress(it, m):
         if not args.quiet:
@@ -71,7 +82,7 @@ def main(argv=None):
                   f"psnr={m['psnr']:.2f}", flush=True)
 
     viewer = None
-    if args.enable_viewer:
+    if args.enable_viewer and main_rank:
         from instantsplat_tpu_torch.render.network_gui import NetworkGUI
 
         viewer = NetworkGUI()
@@ -91,7 +102,8 @@ def main(argv=None):
     finally:
         if viewer is not None:
             viewer.close()
-    print(f"[train] done -> {model.model_path}")
+    if main_rank:
+        print(f"[train] done -> {model.model_path}")
     return params, history
 
 

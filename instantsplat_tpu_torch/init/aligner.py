@@ -25,15 +25,20 @@ loss as the JAX package:
 
 The loop is one plain PyTorch loop on stacked [E, H*W] tensors: a few
 hundred small launches an iteration and no host read until the end. The
-JAX package's ~60 s block dispatch is a TPU workaround and its edge
-sharding over a mesh is not ported yet. On the card the backward of the
-per-edge gathers `world[ei]` adds with atomics, so the card's result is
-tolerance-equal to the CPU's, not bit-equal.
+JAX package's ~60 s block dispatch is a TPU workaround, not ported. With a
+mesh, each rank holds a contiguous share of the edges (when the rank
+count divides E) or of the pixels (when it divides H*W), the parameters
+replicated (rank 0's start broadcast); each rank's loss is its share of
+the global sum, still divided by the global counts, and the gradients
+are summed over the ranks before every identical Adam step. On the card
+the backward of the per-edge gathers `world[ei]` adds with atomics, so
+the card's result is tolerance-equal to the CPU's, not bit-equal.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 
 import numpy as np
@@ -361,7 +366,9 @@ class GlobalAligner:
     # the optimization loop (PyTorch, on the aligner's device)
     # ------------------------------------------------------------------
 
-    def _buffers(self, dev):
+    def _buffers(self, dev, edges=slice(None), area=slice(None)):
+        """The loss's constant tensors, restricted to the edges `edges`
+        and the pixels `area` (a rank's share under a mesh)."""
         gx, gy = np.meshgrid(np.arange(self.W), np.arange(self.H))
         grid = np.stack([gx, gy], -1).reshape(-1, 2)
         E = len(self.edges)
@@ -372,22 +379,42 @@ class GlobalAligner:
 
         # conf transform = log (base_opt.py:46 conf='log')
         return dict(
-            grid=t(grid),
+            grid=t(grid[area]),
             pp=t(self.pp),
-            pred_i=t(self.preds.pred_i.reshape(E, self.area, 3)),
-            pred_j=t(self.preds.pred_j.reshape(E, self.area, 3)),
+            pred_i=t(self.preds.pred_i.reshape(E, self.area, 3)[edges, area]),
+            pred_j=t(self.preds.pred_j.reshape(E, self.area, 3)[edges, area]),
             w_i=t(np.log(np.clip(self.preds.conf_i, 1e-8, None)).reshape(
-                E, self.area)),
+                E, self.area)[edges, area]),
             w_j=t(np.log(np.clip(self.preds.conf_j, 1e-8, None)).reshape(
-                E, self.area)),
-            ei=t([i for i, _ in self.edges], torch.int64),
-            ej=t([j for _, j in self.edges], torch.int64),
+                E, self.area)[edges, area]),
+            ei=t([i for i, _ in self.edges[edges]], torch.int64),
+            ej=t([j for _, j in self.edges[edges]], torch.int64),
+            edges=edges, area=area,
         )
+
+    def _shares(self, mesh):
+        """(edge slice, area slice) of this rank: the edges when the rank
+        count divides E, else the pixels when it divides H*W, else None
+        (every rank runs the whole loss, with JAX's warning)."""
+        from instantsplat_tpu_torch.parallel import runtime
+
+        _, rank, n = runtime.axis(mesh)
+        e = len(self.edges)
+        if e % n == 0:
+            return slice(rank * e // n, (rank + 1) * e // n), slice(None)
+        if self.area % n == 0:
+            a = self.area
+            return slice(None), slice(rank * a // n, (rank + 1) * a // n)
+        logging.getLogger(__name__).warning(
+            "aligner: neither %d edges nor %d pixels divide the %d-device "
+            "mesh; running replicated (correct but unsharded).", e,
+            self.area, n)
+        return None
 
     def _unproject(self, params, buffers):
         """[V, A, 3] world points from the depth, focal and pose params."""
         focals = torch.exp(params["im_focals"] / self.focal_break)  # [V,1]
-        depth = torch.exp(params["im_depth"])  # [V,A]
+        depth = torch.exp(params["im_depth"][:, buffers["area"]])  # [V,A]
         xy = buffers["grid"][None] - buffers["pp"][:, None, :]
         rel = torch.cat([depth[..., None] * xy / focals[..., None],
                          depth[..., None]], -1)  # [V,A,3]
@@ -404,8 +431,9 @@ class GlobalAligner:
             scale = scale * torch.exp(math.log(self.base_scale)
                                       - torch.mean(logs))
         # scale multiplies rotation AND translation (get_pw_poses)
-        Rs = Rw * scale[:, None, None]
-        tw = G.signed_expm1(params["pw_poses"][:, 4:7]) * scale[:, None]
+        Rs = (Rw * scale[:, None, None])[buffers["edges"]]
+        tw = (G.signed_expm1(params["pw_poses"][:, 4:7])
+              * scale[:, None])[buffers["edges"]]
         ai = _rotate(buffers["pred_i"], Rs) + tw[:, None, :]
         aj = _rotate(buffers["pred_j"], Rs) + tw[:, None, :]
 
@@ -418,13 +446,26 @@ class GlobalAligner:
         lj = torch.sum(dist(world[buffers["ej"]], aj) * buffers["w_j"])
         return li / total + lj / total
 
-    def align(self, niter=300, lr=0.01, lr_min=1e-6, schedule="cosine"):
+    def align(self, niter=300, lr=0.01, lr_min=1e-6, schedule="cosine",
+              mesh=None):
         """Adam over all parameter groups for `niter` iterations on the
         aligner's device; returns the final loss. Frozen groups (preset
         poses, averaged or known focals) keep their values but their
-        moments still update, as in the JAX loop."""
+        moments still update, as in the JAX loop. `mesh`: shard the edges
+        (or the pixels) over the ranks of its first axis; every rank ends
+        with the same parameters and loss."""
         dev = resolve_device(self.device)
-        buffers = self._buffers(dev)
+        groups, shares = None, None
+        if mesh is not None:
+            from instantsplat_tpu_torch.parallel import runtime
+
+            # one start for every rank: rank 0's
+            self.params = runtime.broadcast_object(self.params,
+                                                   runtime.axis(mesh)[0])
+            shares = self._shares(mesh)
+            if shares is not None:
+                groups = [runtime.axis(mesh)[0]]
+        buffers = self._buffers(dev, *(shares or ()))
         params = {k: torch.tensor(v, device=dev).requires_grad_()
                   for k, v in self.params.items()}
         trainable = dict(pw_poses=True, im_poses=not self.poses_frozen,
@@ -446,6 +487,8 @@ class GlobalAligner:
             bc2 = f32(1) - f32(beta2) ** f32(it + 1)
             grads = torch.autograd.grad(self._loss(params, buffers),
                                         list(params.values()))
+            if groups is not None:
+                grads = runtime.all_reduce_flat(grads, groups)
             with torch.no_grad():
                 for (k, p), g in zip(params.items(), grads):
                     m[k].mul_(beta1).add_(g, alpha=1 - beta1)
@@ -454,10 +497,12 @@ class GlobalAligner:
                         p.sub_(float(cur_lr) * (m[k] / float(bc1)) / (
                             torch.sqrt(v[k] / float(bc2)) + eps))
         with torch.no_grad():
-            final_loss = float(self._loss(params, buffers))
+            final_loss = self._loss(params, buffers)
+            if groups is not None:
+                final_loss = runtime.all_reduce_flat([final_loss], groups)[0]
         self.params = {k: p.detach().cpu().numpy()
                        for k, p in params.items()}
-        return final_loss
+        return float(final_loss)
 
     # ------------------------------------------------------------------
     # extraction

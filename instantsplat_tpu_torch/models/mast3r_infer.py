@@ -9,6 +9,10 @@ Two phases, as in the JAX package:
    `batch_size`, gathering the cached encoder tokens per pair; the last
    batch is padded with pair index 0 and the padding dropped.
 
+With a mesh (pair parallelism), the batch is rounded up to a multiple of
+the rank count, every rank encodes all images and decodes its contiguous
+share of each batch, and the shares are gathered in pair order.
+
 Outputs come back as float32 numpy whatever the model's dtype.
 """
 
@@ -31,13 +35,30 @@ def _np(t):
     return t.float().cpu().numpy()
 
 
+def _decode_share(model, feats, bi, bj, hw, mesh):
+    """Decoder + heads of the pairs (bi, bj); with `mesh`, this rank
+    decodes its contiguous share and the shares are gathered in order."""
+    if mesh is None:
+        return model.forward_from_encoded(feats[bi], feats[bj], hw)
+    from instantsplat_tpu_torch.parallel import runtime
+
+    group, rank, ndev = runtime.axis(mesh)
+    per = bi.shape[0] // ndev
+    mine = slice(rank * per, (rank + 1) * per)
+    r1, r2 = model.forward_from_encoded(feats[bi[mine]], feats[bj[mine]],
+                                        hw)
+    return tuple({k: runtime.all_gather_cat(r[k], group)
+                  for k in ("pts3d", "conf", "desc")} for r in (r1, r2))
+
+
 @torch.no_grad()
 def infer_pairs(model: mast3r.MASt3R, images, pairs,
-                batch_size: int = 8) -> PairPrediction:
+                batch_size: int = 8, mesh=None) -> PairPrediction:
     """images [V, H, W, 3] in [0, 1] (or a list of same-shape images);
     pairs: [(i, j)] directed. Mixed shapes go through
     `infer_pairs_mixed`. The returned PairPrediction also carries desc_i /
-    desc_j [E, H, W, 24]."""
+    desc_j [E, H, W, 24]. `mesh`: decode each batch pair-parallel over
+    the ranks of its first axis (the result is the same on every rank)."""
     if isinstance(images, (list, tuple)):
         shapes = {tuple(np.asarray(im).shape[:2]) for im in images}
         if len(shapes) > 1:
@@ -54,6 +75,10 @@ def infer_pairs(model: mast3r.MASt3R, images, pairs,
 
     e = len(pairs)
     batch_size = max(1, min(batch_size, e))
+    if mesh is not None:
+        # a multiple of the rank count (small scenes pad up to it)
+        ndev = mesh.mesh.numel()  # its one axis
+        batch_size = max(ndev, -(-batch_size // ndev) * ndev)
     n_pad = -(-e // batch_size) * batch_size
     ei = np.pad(np.array([i for i, _ in pairs]), (0, n_pad - e))
     ej = np.pad(np.array([j for _, j in pairs]), (0, n_pad - e))
@@ -67,7 +92,7 @@ def infer_pairs(model: mast3r.MASt3R, images, pairs,
     for s in range(0, n_pad, batch_size):
         bi = torch.as_tensor(ei[s:s + batch_size], device=feats.device)
         bj = torch.as_tensor(ej[s:s + batch_size], device=feats.device)
-        r1, r2 = model.forward_from_encoded(feats[bi], feats[bj], (h, w))
+        r1, r2 = _decode_share(model, feats, bi, bj, (h, w), mesh)
         n = min(batch_size, e - s)
         for side, r in (("i", r1), ("j", r2)):
             out[f"pred_{side}"][s:s + n] = _np(r["pts3d"][:n])
@@ -129,13 +154,15 @@ def infer_pairs_mixed(model: mast3r.MASt3R, images, pairs,
 
 def make_pointmap_fn(ckpt_path: str, batch_size: int = 8,
                      cfg: mast3r.MASt3RConfig | None = None, dtype=None,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """-> pointmap_fn(images, pairs) for pipelines.init_geo_pipeline.
 
     ckpt_path: an upstream MASt3R .pth, or "random" / "random:SEED" for the
     full production architecture with the JAX package's random weights
     of that seed (the production compute, garbage geometry).
-    dtype: torch.bfloat16 for mixed precision, None for float32."""
+    dtype: torch.bfloat16 for mixed precision, None for float32.
+    mesh: pair-parallel decoding of same-shape scenes over its ranks
+    (mixed-shape scenes decode on every rank)."""
     cfg = cfg or mast3r.MASt3RConfig()
     if not ckpt_path:
         raise RuntimeError(
@@ -155,7 +182,7 @@ def make_pointmap_fn(ckpt_path: str, batch_size: int = 8,
             shapes = np.array([np.asarray(im).shape[:2] for im in images])
             return mixed_results_to_prediction(results, pairs, shapes)
         return infer_pairs(model, np.asarray(images), pairs,
-                           batch_size=batch_size)
+                           batch_size=batch_size, mesh=mesh)
 
     return fn
 

@@ -114,11 +114,12 @@ def _scan_chunks(blk_rows, gidx, px, py, chunk: int):
 
 
 def composite_plain(packed: torch.Tensor, height: int, width: int,
-                    chunk: int = 256):
+                    chunk: int = 256, y_offset: float = 0.0):
     """Composite a depth-sorted packed [N, 10] splat array.
 
     Columns: mx, my, conic a, b, c, log-opacity (-inf = invalid), r, g, b,
-    depth. Returns (acc [4, H, W] = rgb + depth accumulators, tfin [H, W]
+    depth. `y_offset` shifts the row index: the rows [y_offset, y_offset +
+    height) of the image (a row block of a sharded render). Returns (acc [4, H, W] = rgb + depth accumulators, tfin [H, W]
     final transmittance, lc [H, W] int64 last contributing index or -1).
     Differentiable w.r.t. `packed` through autograd.
     """
@@ -132,7 +133,7 @@ def composite_plain(packed: torch.Tensor, height: int, width: int,
         packed = torch.cat([packed, pad], dim=0)
     px, py = pixel_coords(height, width, dev)
     rgbd, logT, lc = _scan_chunks(packed, torch.arange(n_pad, device=dev),
-                                  px, py, chunk)
+                                  px, py + y_offset, chunk)
     acc = rgbd.T.reshape(4, height, width)
     return acc, torch.exp(logT).reshape(height, width), lc.reshape(
         height, width)

@@ -14,7 +14,9 @@ init_geo.py:24-129):
 The pointmap inference is injected as `pointmap_fn(images, pairs) ->
 PairPrediction`, so the pipeline runs with any backend: the MASt3R model
 (models/mast3r_infer.make_pointmap_fn) or an exact ("oracle") backend in
-tests.
+tests. With a mesh the alignment is sharded over the ranks (init/aligner.py
+align(mesh=)); pass the same mesh to make_pointmap_fn for pair-parallel
+inference. Every rank computes the scene; rank 0 alone writes it.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 
 from instantsplat_tpu_torch.data import covis, images as image_io, scene as scene_io
 from instantsplat_tpu_torch.init import GlobalAligner, make_pair_indices
+from instantsplat_tpu_torch.parallel.runtime import is_main_process
 from instantsplat_tpu_torch.utils import camera_paths
 
 
@@ -47,6 +50,7 @@ def run_init_geo(
     save_all_pts=False,
     max_pts=int(150e10),
     device="cuda",
+    mesh=None,
 ):
     """Returns the GlobalAligner (with the optimized scene) after writing
     all stage-1 artifacts under <source_path>/sparse_{n_views}/{0,1}. The
@@ -56,8 +60,10 @@ def run_init_geo(
     model_path = Path(model_path)
     timings = {}
     t_load = time.time()
-    save_path, sparse_0, sparse_1 = scene_io.init_filestructure(
-        source_path, n_views)
+    writer = is_main_process()
+    if writer:
+        save_path, sparse_0, sparse_1 = scene_io.init_filestructure(
+            source_path, n_views)
 
     image_files, image_suffix = image_io.sorted_image_files(
         source_path / "images")
@@ -91,8 +97,11 @@ def run_init_geo(
     aligner.init_mst(focal_avg=focal_avg)
     timings["init_mst"] = time.time() - t
     t = time.time()
-    aligner.align(niter=niter, lr=lr, schedule=schedule)
+    aligner.align(niter=niter, lr=lr, schedule=schedule, mesh=mesh)
     timings["align"] = time.time() - t
+    if not writer:
+        aligner.timings = timings
+        return aligner
 
     t = time.time()
     extrinsics_w2c = np.linalg.inv(aligner.get_im_poses())

@@ -16,11 +16,13 @@ model (port of instantsplat_tpu/pipelines/render_pipeline.py).
 - FPS benchmark: 1000 synchronised renders, the mean of the middle 800,
   appended to total_fps.json.
 
-Not ported: the TPU dispatch governor (bounded fori_loop blocks under a
-runtime deadline; a TPU workaround that leaves the maths unchanged) and
-the multi-device refinement `refine_poses_sharded`. Its single-device path
-is the per-view refinement below batched by lax.map, so here every view
-runs `make_pose_refiner`.
+With a mesh (`cli.render --n_devices`), `refine_poses_sharded` splits the
+test views over the ranks, each running `make_pose_refiner` on its share,
+and gathers the refined poses in view order; rank 0 renders and writes.
+Without one every view runs `make_pose_refiner` in turn (JAX batches them
+with lax.map on one device, the same per-view maths). Not ported: the TPU
+dispatch governor (bounded fori_loop blocks under a runtime deadline; a
+TPU workaround that leaves the maths unchanged).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from instantsplat_tpu_torch import resolve_device
 from instantsplat_tpu_torch.data import images as image_io, scene as scene_io
 from instantsplat_tpu_torch.models.camera import Camera
 from instantsplat_tpu_torch.ops.losses import masked_l1_loss
+from instantsplat_tpu_torch.parallel import runtime
 from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
 from instantsplat_tpu_torch.pipelines.trainer import _binned_candidate, _sync
 from instantsplat_tpu_torch.render.driver import render
@@ -166,16 +169,87 @@ def make_pose_refiner(params, camera: Camera, backend="pallas",
     return refine
 
 
+def refine_poses_sharded(params, camera: Camera, poses0, gts, mesh,
+                         backend="pallas", num_iter=500, lr_t=3e-3,
+                         lr_q=1e-3, lr_min=1e-4, weight_decay=1e-4, bg=None,
+                         intrinsics=None):
+    """Test-time pose refinement of V views of one raster shape, the views
+    split over the ranks of `mesh` (its first axis; None = all here).
+
+    The views are padded to a multiple of the rank count with copies of
+    view 0 (dropped afterwards); rank r refines the contiguous block
+    [r * V_pad / n, (r + 1) * V_pad / n) with exactly make_pose_refiner's
+    maths, and the results are gathered in view order.
+    poses0 [V, 7], gts [V, H, W, 3], intrinsics [V, 4] (fx, fy, cx, cy;
+    default: the camera's) -> (best_poses [V, 7], best_loss [V]) numpy,
+    the same on every rank."""
+    dev = params.xyz.device
+    group, rank, ndev = (None, 0, 1) if mesh is None else \
+        runtime.axis(mesh)
+    poses0 = torch.as_tensor(np.asarray(poses0, np.float32), device=dev)
+    gts = torch.as_tensor(gts, dtype=torch.float32, device=dev)
+    v = poses0.shape[0]
+    if intrinsics is None:
+        intrinsics = torch.stack([camera.fx, camera.fy, camera.cx,
+                                  camera.cy])[None].expand(v, 4)
+    intrinsics = torch.as_tensor(intrinsics, dtype=torch.float32,
+                                 device=dev)
+    per = -(-v // ndev)
+    pad = per * ndev - v
+    if pad:  # copies of view 0, discarded after
+        poses0 = torch.cat([poses0, poses0[:1].expand(pad, 7)])
+        gts = torch.cat([gts, gts[:1].expand(pad, *gts.shape[1:])])
+        intrinsics = torch.cat([intrinsics, intrinsics[:1].expand(pad, 4)])
+    refine = make_pose_refiner(params, camera, backend=backend,
+                               num_iter=num_iter, lr_t=lr_t, lr_q=lr_q,
+                               lr_min=lr_min, weight_decay=weight_decay,
+                               bg=bg)
+    mine = []
+    for k in range(rank * per, (rank + 1) * per):
+        best_pose, best_loss = refine(poses0[k], gts[k], intr=tuple(
+            intrinsics[k]))
+        mine.append(torch.cat([best_pose, best_loss.reshape(1)]))
+    out = torch.stack(mine)
+    if mesh is not None:
+        out = runtime.all_gather_cat(out, group)
+    out = out[:v].cpu().numpy()
+    return out[:, :7], out[:, 7]
+
+
 def render_set_optimize(model_path, name, iteration, cameras, poses7, params,
                         backend="pallas", white_background=False,
-                        num_iter=500, test_fps=False) -> np.ndarray:
+                        num_iter=500, test_fps=False, mesh=None) -> np.ndarray:
     """Test branch: refine each view's pose, then render it. Returns the
-    refined [V, 7] poses."""
+    refined [V, 7] poses. With `mesh` the views of one shape are refined
+    in parallel over the ranks (refine_poses_sharded) and rank 0 alone
+    renders and writes."""
     out_dir = Path(model_path) / name / f"ours_{iteration}"
-    (out_dir / "renders").mkdir(parents=True, exist_ok=True)
-    (out_dir / "gt").mkdir(parents=True, exist_ok=True)
+    writer = runtime.is_main_process()
+    if writer:
+        (out_dir / "renders").mkdir(parents=True, exist_ok=True)
+        (out_dir / "gt").mkdir(parents=True, exist_ok=True)
     dev = params.xyz.device
     bg = _background(white_background, dev)
+
+    same_shape = len({(c.height, c.width) for c in cameras}) == 1
+    if mesh is not None and same_shape and len(cameras) > 1 \
+            and num_iter > 0:
+        t0 = time.perf_counter()
+        best, losses = refine_poses_sharded(
+            params, cameras[0], np.asarray(poses7), torch.stack(
+                [c.image for c in cameras]), mesh, backend=backend,
+            num_iter=num_iter, bg=bg, intrinsics=torch.stack(
+                [torch.stack([c.fx, c.fy, c.cx, c.cy]) for c in cameras]))
+        if writer:
+            print(f"[render] pose refinement of {len(cameras)} views over "
+                  f"{mesh.mesh.numel()} devices: {num_iter} iterations in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            for idx in range(len(cameras)):
+                print(f"[render] view {idx + 1}/{len(cameras)}: best masked "
+                      f"L1 {losses[idx]:.7g}, pose "
+                      + " ".join(f"{x:.7g}" for x in best[idx]), flush=True)
+        return _render_refined(out_dir, cameras, list(best), params, bg,
+                               backend, model_path, test_fps)
 
     refined = []
     # one refiner per raster shape; each view's intrinsics are passed in
@@ -189,11 +263,22 @@ def render_set_optimize(model_path, name, iteration, cameras, poses7, params,
         best_pose, best_loss = refiner_of_shape[key](
             poses7[idx], cam.image, intr=(cam.fx, cam.fy, cam.cx, cam.cy))
         refined.append(best_pose.cpu().numpy())
-        print(f"[render] pose refinement view {idx + 1}/{len(cameras)}: "
-              f"{num_iter} iterations in {time.perf_counter() - t0:.3f} s, "
-              f"best masked L1 {float(best_loss):.7g}, pose "
-              + " ".join(f"{x:.7g}" for x in refined[-1]), flush=True)
+        if writer:
+            print(f"[render] pose refinement view {idx + 1}/{len(cameras)}: "
+                  f"{num_iter} iterations in {time.perf_counter() - t0:.3f} "
+                  f"s, best masked L1 {float(best_loss):.7g}, pose "
+                  + " ".join(f"{x:.7g}" for x in refined[-1]), flush=True)
+    return _render_refined(out_dir, cameras, refined, params, bg, backend,
+                           model_path, test_fps)
 
+
+def _render_refined(out_dir, cameras, refined, params, bg, backend,
+                    model_path, test_fps) -> np.ndarray:
+    """Render and save each test view at its refined pose, and the FPS
+    benchmark; on rank 0 only."""
+    if not runtime.is_main_process():
+        return np.stack(refined)
+    dev = params.xyz.device
     for idx, cam in enumerate(cameras):
         with torch.no_grad():
             out = render(params, cam, pose=torch.as_tensor(
@@ -271,9 +356,12 @@ def frames_to_video(frame_dir, out_path, fps=30) -> bool:
 
 def run_render(model, iteration=-1, skip_train=False, skip_test=False,
                infer_video=False, optim_test_pose_iter=500, test_fps=True,
-               backend="pallas", video_seconds=10, device="cuda") -> int:
+               backend="pallas", video_seconds=10, device="cuda",
+               mesh=None) -> int:
     """The whole render stage for a ModelParams `model`; returns the
-    iteration rendered."""
+    iteration rendered. With `mesh` the test views' pose refinement runs
+    over the ranks; rank 0 decides the `auto` backend for all of them and
+    alone writes the renders."""
     dev = resolve_device(device)
     model_path = Path(model.model_path)
     train_info = scene_io.read_scene(
@@ -286,8 +374,11 @@ def run_render(model, iteration=-1, skip_train=False, skip_test=False,
         torch.as_tensor(T.matrix_to_pose_np(train_info.poses_w2c[:1])[0],
                         device=dev),
         _background(model.white_background, dev), backend)
+    if mesh is not None:
+        backend = runtime.broadcast_object(backend, runtime.axis(mesh)[0])
+    writer = runtime.is_main_process()
 
-    if not skip_train:
+    if not skip_train and writer:
         opt_poses = np.load(
             model_path / "pose" / f"ours_{iteration}" / "pose_optimized.npy")
         render_view_set(model_path, "train", iteration, train_info.cameras,
@@ -303,9 +394,9 @@ def run_render(model, iteration=-1, skip_train=False, skip_test=False,
             model_path, "test", iteration, test_info.cameras,
             T.matrix_to_pose_np(test_info.poses_w2c), params,
             backend=backend, white_background=model.white_background,
-            num_iter=optim_test_pose_iter, test_fps=test_fps)
+            num_iter=optim_test_pose_iter, test_fps=test_fps, mesh=mesh)
 
-    if infer_video:
+    if infer_video and writer:
         inter = save_interpolated_poses(model_path, iteration, model.n_views,
                                         seconds=video_seconds)
         cam0 = train_info.cameras[0]

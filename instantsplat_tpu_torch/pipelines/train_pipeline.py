@@ -12,6 +12,9 @@ cloud (KNN scales), attaches learnable per-view poses, runs
   <model>/train_time.txt, <model>/scalars.jsonl
   <model>/ckpt/chkpnt{it}.npz                          (checkpoints)
 
+With a mesh every rank trains (parallel/sharding.py) and rank 0 alone
+writes the artifacts and the scalar log.
+
 Checkpoints use the JAX stage's npz keys (p_*, m_*, v_*, step,
 per_point_lr, max_sh_degree, iteration), so each package resumes from the
 other's.
@@ -37,6 +40,7 @@ from instantsplat_tpu_torch.opt.gaussian_opt import (
     OptimizationConfig,
     confidence_to_lr,
 )
+from instantsplat_tpu_torch.parallel.runtime import is_main_process
 from instantsplat_tpu_torch.pipelines.config import ModelParams, save_cfg_args
 from instantsplat_tpu_torch.pipelines.trainer import TrainerConfig, train_joint
 from instantsplat_tpu_torch.utils import transforms as T
@@ -113,15 +117,18 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
                  trainer: TrainerConfig, save_iterations=None,
                  checkpoint_iterations=(), progress_cb=None,
                  start_checkpoint=None, testing_iterations=(), viewer=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
     """Returns (params, history). Writes the artifact tree under
-    model.model_path. At the logged iterations listed in
+    model.model_path (rank 0 only, with `mesh`; trainer.n_devices may
+    build the mesh in train_joint). At the logged iterations listed in
     `testing_iterations` the validation sweep renders every train view
     with its learnable pose (scalars `train/loss_viewpoint-{l1,psnr}`);
     `viewer` (a NetworkGUI) is served live during training."""
     dev = resolve_device(device)
+    writer = is_main_process()
     model_path = Path(model.model_path)
-    model_path.mkdir(parents=True, exist_ok=True)
+    if writer:
+        model_path.mkdir(parents=True, exist_ok=True)
     save_iterations = sorted(set(
         [trainer.iterations] if save_iterations is None
         else list(save_iterations) + [trainer.iterations]))
@@ -153,13 +160,14 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
         if len(conf) == params.num_points:
             confidence_lr = confidence_to_lr(conf).numpy()
 
-    if Path(info.ply_path).exists():
-        shutil.copyfile(info.ply_path, model_path / "input.ply")
-    _write_cameras_json(model_path, info)
-    for it in save_iterations:
-        pdir = model_path / "pose" / f"ours_{it}"
-        pdir.mkdir(parents=True, exist_ok=True)
-        np.save(pdir / "pose_org.npy", poses_7_to_w2c(params.cam_poses))
+    if writer:
+        if Path(info.ply_path).exists():
+            shutil.copyfile(info.ply_path, model_path / "input.ply")
+        _write_cameras_json(model_path, info)
+        for it in save_iterations:
+            pdir = model_path / "pose" / f"ours_{it}"
+            pdir.mkdir(parents=True, exist_ok=True)
+            np.save(pdir / "pose_org.npy", poses_7_to_w2c(params.cam_poses))
 
     opt_state0, first_iter = None, 0
     if start_checkpoint:
@@ -168,12 +176,14 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
         print(f"[train] resumed from {start_checkpoint} "
               f"at iteration {first_iter}")
 
-    logger = ScalarLogger(model_path)
+    logger = ScalarLogger(model_path) if writer else None
     params_ref = [params]
     eval_fn = make_eval_fn(params_ref, {"train": info.cameras},
                            backend=trainer.backend)
 
     def _cb(it, m):
+        if not writer:
+            return
         training_report(logger, it, m, testing_iterations=testing_iterations,
                         eval_fn=eval_fn)
         if progress_cb is not None:
@@ -185,9 +195,12 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
             params, info.cameras, opt_cfg=opt, trainer_cfg=trainer,
             spatial_lr_scale=info.nerf_radius, confidence_lr=confidence_lr,
             progress_cb=_cb, opt_state=opt_state0, first_iter=first_iter,
-            live_ref=params_ref, viewer=viewer)
+            live_ref=params_ref, viewer=viewer, mesh=mesh)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
+    if not writer:
+        return params, history
     scene_io.save_time(model_path, "[2] train_joint", time.time() - t0)
 
     for it in save_iterations:

@@ -13,9 +13,12 @@ its own shape), and backend="auto": the timed probe of the dense kernels
 against a capacity backend sized for the scene, and its periodic re-probe
 (see train_joint). Left out as TPU workarounds: lax.scan blocks (here a
 "block" is just a run of iterations on one backend) and the dispatch
-governor that kept each scan under a runtime deadline; not ported yet: the
-device mesh. With a `viewer` (render/network_gui.NetworkGUI), every
-iteration first answers at most one pending viewer request (_serve_viewer).
+governor that kept each scan under a runtime deadline. With a mesh
+(`TrainerConfig.n_devices`, or `mesh=`), every render is sharded over the
+ranks (parallel/sharding.py); rank 0 draws the view order and broadcasts
+it, and `auto` resolves to the dense kernels, as in JAX. With a `viewer`
+(render/network_gui.NetworkGUI), every iteration first answers at most
+one pending viewer request (_serve_viewer).
 """
 
 from __future__ import annotations
@@ -55,19 +58,43 @@ class TrainerConfig:
     sh_up_interval: int = 1000  # reference train.py:148-149
     seed: int = 0
     log_every: int = 100
+    # renders sharded over an n_devices 1-D mesh (parallel/sharding.py):
+    # 0/None/1 = one device; -1 = every rank of the group. shard_axis:
+    # 'pixels' (row blocks per rank) or 'gaussians' (depth slices)
+    n_devices: Optional[int] = None
+    shard_axis: str = "pixels"
+
+
+def _render_rgb(p, cam, pose, bg, active_sh, chunk, backend, mesh,
+                shard_axis):
+    """One view's RGB from the one-device driver, or sharded over `mesh`
+    (row blocks or depth slices; the gradients reaching p and pose are the
+    whole image's on every rank)."""
+    if mesh is None:
+        return render(p, cam, pose=pose, bg=bg, active_sh_degree=active_sh,
+                      chunk=chunk, backend=backend).render
+    from instantsplat_tpu_torch.parallel import sharding
+
+    if shard_axis == "gaussians":
+        return sharding.gaussian_sharded_render(
+            p, cam, mesh, pose=pose, bg=bg, active_sh_degree=active_sh)[0]
+    return sharding.sharded_render(
+        p, cam, mesh, pose=pose, bg=bg, active_sh_degree=active_sh,
+        chunk=chunk, backend=backend)[0]
 
 
 def train_step(params: GaussianModel, cam: Camera, optimizer, opt_state,
                iteration: int, active_sh: int, bg, lambda_dssim: float,
-               backend: str, chunk: int) -> dict:
+               backend: str, chunk: int, mesh=None,
+               shard_axis: str = "pixels") -> dict:
     """render -> loss -> backward -> Adam, in place. Returns the metrics
     as 0-dim tensors (reading them synchronises with the device)."""
     tensors = params.tensors()
     for t in tensors:
         t.requires_grad_(True)
-    out = render(params, cam, pose=params.get_pose(cam.uid), bg=bg,
-                 active_sh_degree=active_sh, chunk=chunk, backend=backend)
-    loss, aux = photometric_loss(out.render, cam.image, lambda_dssim)
+    rgb = _render_rgb(params, cam, params.get_pose(cam.uid), bg, active_sh,
+                      chunk, backend, mesh, shard_axis)
+    loss, aux = photometric_loss(rgb, cam.image, lambda_dssim)
     grads = torch.autograd.grad(loss, tensors, allow_unused=True)
     for t in tensors:
         t.requires_grad_(False)
@@ -75,7 +102,7 @@ def train_step(params: GaussianModel, cam: Camera, optimizer, opt_state,
              for name, t, g in zip(PARAM_FIELDS, tensors, grads)}
     optimizer.step(params, grads, opt_state, iteration)
     with torch.no_grad():
-        aux["psnr"] = psnr(out.render, cam.image)
+        aux["psnr"] = psnr(rgb, cam.image)
     return dict(loss=loss.detach(), l1=aux["l1"].detach(),
                 ssim=aux["ssim"].detach(), psnr=aux["psnr"])
 
@@ -169,8 +196,14 @@ def train_joint(
     first_iter: int = 0,
     live_ref: Optional[list] = None,
     viewer=None,
+    mesh=None,
 ):
     """Run the joint optimisation; `params` is updated in place.
+
+    mesh: a 1-D DeviceMesh (parallel.make_mesh); built here from
+    trainer_cfg.n_devices when that asks for more than one device. Every
+    render is then sharded per trainer_cfg.shard_axis, every rank runs the
+    same loop and ends with the same parameters.
 
     live_ref: a 1-element list set to the latest params before each
     progress_cb call (the validation sweep renders what it holds).
@@ -196,6 +229,20 @@ def train_joint(
     dev = params.xyz.device
     bg = (torch.ones(3, device=dev) if trainer_cfg.white_background
           else torch.zeros(3, device=dev))
+    if mesh is None and trainer_cfg.n_devices not in (None, 0, 1):
+        from instantsplat_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(None if trainer_cfg.n_devices == -1
+                         else trainer_cfg.n_devices)
+    sharded = {}  # train_step's mesh arguments
+    if mesh is not None:
+        from instantsplat_tpu_torch.parallel import runtime
+
+        sharded = dict(mesh=mesh, shard_axis=trainer_cfg.shard_axis)
+        group = mesh.get_group()
+        if runtime.is_main_process():
+            print(f"[train] sharding renders over {mesh.mesh.numel()} "
+                  f"devices (axis: {trainer_cfg.shard_axis})", flush=True)
     optimizer = GaussianOptimizer(opt_cfg, spatial_lr_scale=spatial_lr_scale,
                                   total_iterations=trainer_cfg.iterations)
     if opt_state is None:
@@ -208,6 +255,8 @@ def train_joint(
         nonlocal queue
         if not queue:
             queue = list(rng.permutation(len(cameras)))
+            if mesh is not None:  # rank 0's draw, on every rank
+                queue = runtime.broadcast_object(queue, group)
         return int(queue.pop())
 
     log_every = trainer_cfg.log_every
@@ -216,7 +265,7 @@ def train_joint(
     alt_name: Optional[str] = None
     if cur_name == "auto":
         cur_name = "pallas"
-        if not mixed_shapes:
+        if not mixed_shapes and mesh is None:
             alt_name = _binned_candidate(params, cameras[0])
     probe = max(1, min(10, log_every))
     # None while the first probe runs (blocks of `probe`), then log_every
@@ -281,7 +330,7 @@ def train_joint(
             active_sh = min(i // interval, params.max_sh_degree)
             metrics = train_step(params, cameras[view], optimizer, opt_state,
                                  i, active_sh, bg, opt_cfg.lambda_dssim,
-                                 name, trainer_cfg.chunk)
+                                 name, trainer_cfg.chunk, **sharded)
         if timed:
             _sync(dev)
         per_iter = (_clock() - t_blk) / (end - it + 1)

@@ -1,5 +1,5 @@
-"""DUSt3R/MASt3R pre-training on one device (port of
-instantsplat_tpu/train_dust3r/trainer.py).
+"""DUSt3R/MASt3R pre-training on one device or data parallel over a mesh
+(port of instantsplat_tpu/train_dust3r/trainer.py).
 
 The model is the port's `MASt3R` module holding float32 master
 parameters (`models.mast3r.build_trainable`). One optimizer step is the
@@ -23,8 +23,22 @@ same under `['m']` and `['v']`, and `['step']`), written with an atomic
 rename, so a `checkpoint-last.npz` written by either package resumes in
 the other.
 
-Data-parallel and fully sharded training over several devices are not
-ported yet: `mesh` / `fsdp` raise.
+Over a 1-D mesh (`mesh=`, parallel.make_mesh) the step is data parallel:
+every rank receives the global batch, runs the model on its contiguous
+share of the batch axis (the second axis under accumulation), gathers the
+predictions of all ranks and computes the loss of the whole batch (the
+gather's adjoint hands each rank its own share of the prediction
+gradient), so the loss and its masked means are the global batch's, as
+under JAX's SPMD. Micro-batches accumulate locally; one reduction per
+optimizer step sums the ranks' gradients: an all-reduce (DDP), or with
+`fsdp=True` a reduce-scatter onto flat shards. FSDP keeps the float32
+masters, their gradients and both AdamW moments as flat per-rank shards
+(each parameter cut into `world` contiguous chunks of its flattened
+elements; JAX shards each leaf's largest divisible dim, a different
+layout with the same numbers): the module's full parameters are gathered
+for a step's forward and backward and freed after it. Checkpoints stay
+full tensors in JAX's layout, gathered and written by rank 0; a resume
+re-shards them.
 """
 
 from __future__ import annotations
@@ -72,18 +86,125 @@ def _micro(batch, i):
     return batch[i] if torch.is_tensor(batch) else batch
 
 
-def _not_ported(mesh, fsdp):
-    if mesh is not None or fsdp:
-        raise NotImplementedError(
-            "data-parallel / FSDP pre-training over several devices is not "
-            "yet ported; run on one device (mesh=None, fsdp=False)")
+class _DataParallel:
+    """One rank's side of a data-parallel step over a 1-D mesh; with fsdp,
+    also the flat-shard layout of the parameters, gradients and
+    moments."""
+
+    def __init__(self, mesh, fsdp: bool):
+        from instantsplat_tpu_torch.parallel import runtime
+
+        self.group, self.rank, self.world = runtime.axis(mesh)
+        self.fsdp = fsdp
+        self.shapes = None  # name -> full shape (fsdp)
+
+    # -- the batch and the predictions --
+    def share(self, x):
+        """This rank's contiguous share of a batch axis-0 tensor."""
+        b = x.shape[0]
+        if b % self.world:
+            raise ValueError(f"batch {b} does not divide the "
+                             f"{self.world}-device mesh")
+        per = b // self.world
+        return x[self.rank * per:(self.rank + 1) * per]
+
+    def gather(self, x):
+        """Every rank's share, concatenated in rank order; the adjoint is
+        this rank's own share of the cotangent."""
+        from instantsplat_tpu_torch.parallel.sharding import _gather
+
+        return _gather(x, self.group, self.rank).flatten(0, 1)
+
+    # -- gradients --
+    def broadcast_(self, tensors):
+        """Rank 0's values into `tensors` on every rank (one start)."""
+        flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+        torch.distributed.broadcast(
+            flat, torch.distributed.get_global_rank(self.group, 0),
+            group=self.group)
+        with torch.no_grad():
+            k = 0
+            for t in tensors:
+                t.copy_(flat[k:k + t.numel()].view(t.shape))
+                k += t.numel()
+
+    def all_reduce(self, grads):
+        """The ranks' gradients summed, every rank the same bits."""
+        from instantsplat_tpu_torch.parallel.runtime import all_reduce_flat
+
+        return all_reduce_flat(grads, [self.group])
+
+    # -- fsdp: flat shards --
+    def _chunk(self, numel: int) -> int:
+        return -(-numel // self.world)
+
+    def _rows(self, full):
+        """[world, C]: row r = the r-th chunk of every tensor, padded."""
+        rows = []
+        for t in full:
+            c = self._chunk(t.numel())
+            f = t.reshape(-1)
+            rows.append(torch.nn.functional.pad(
+                f, (0, c * self.world - f.numel())).view(self.world, c))
+        return torch.cat(rows, 1)
+
+    def shard(self, full):
+        """This rank's chunks of the full tensors, as 1-D tensors."""
+        self.shapes = [t.shape for t in full]
+        return [r.clone() for r in self._views(self._rows(full)[self.rank])]
+
+    def _views(self, flat):
+        out, k = [], 0
+        for s in self.shapes:
+            c = self._chunk(s.numel())
+            out.append(flat[k:k + c])
+            k += c
+        return out
+
+    def unshard(self, shards):
+        """The full tensors from every rank's chunks (all-gather)."""
+        from instantsplat_tpu_torch.parallel.runtime import all_gather_cat
+
+        rows = all_gather_cat(torch.cat(shards)[None], self.group)
+        out, k = [], 0
+        for s in self.shapes:
+            c = self._chunk(s.numel())
+            out.append(rows[:, k:k + c].reshape(-1)[:s.numel()].view(s))
+            k += c
+        return out
+
+    def reduce_scatter(self, grads):
+        """This rank's chunks of the ranks' summed gradients."""
+        rows = self._rows(grads)
+        if torch.distributed.get_backend(self.group) == "nccl":
+            mine = torch.empty_like(rows[0])
+            torch.distributed.reduce_scatter_tensor(
+                mine, rows.reshape(-1), group=self.group)
+        else:  # gloo has no reduce-scatter: all-reduce, keep this row
+            torch.distributed.all_reduce(rows, group=self.group)
+            mine = rows[self.rank]
+        return self._views(mine)
+
+    def gather_params(self, model, state):
+        """The module's full float32 masters from the shards."""
+        with torch.no_grad():
+            for p, full in zip(model.parameters(),
+                               self.unshard(list(state["params"].values()))):
+                p.data = full
+
+    def free_params(self, model):
+        for p in model.parameters():
+            p.data = p.data.new_empty(0)
+            p.grad = None
 
 
-def _make_objective(cfg, loss_fn, alpha, compute_dtype):
+def _make_objective(cfg, loss_fn, alpha, compute_dtype, dp=None):
     from torch.func import functional_call
 
     def objective(model, batch):
         img1, img2 = batch["img1"], batch["img2"]
+        if dp is not None:  # this rank's share of the batch
+            img1, img2 = dp.share(img1), dp.share(img2)
         if compute_dtype is not None:
             params = {n: p.to(compute_dtype) if p.is_floating_point() else p
                       for n, p in model.named_parameters()}
@@ -92,6 +213,9 @@ def _make_objective(cfg, loss_fn, alpha, compute_dtype):
                                 img2.to(compute_dtype)))
         else:
             r1, r2 = model(img1, img2)
+        if dp is not None:  # the whole batch's predictions on every rank
+            r1, r2 = ({k: dp.gather(v) for k, v in r.items()}
+                      for r in (r1, r2))
         r2 = dict(r2)
         r2["pts3d_in_other_view"] = r2.pop("pts3d")
         loss, details = loss_fn(batch["gt1"], batch["gt2"], r1, r2,
@@ -99,6 +223,28 @@ def _make_objective(cfg, loss_fn, alpha, compute_dtype):
         return loss.float(), details
 
     return objective
+
+
+def _adamw(p, g, m, v, decay, lr, bc1, bc2, beta1, beta2, eps,
+           weight_decay):
+    """One AdamW update of the parameter list p in place: a handful of
+    `torch._foreach_*` launches over all parameters. decay[i]: whether
+    p[i] takes weight decay (matrices and conv kernels)."""
+    with torch.no_grad():
+        torch._foreach_mul_(m, beta1)
+        torch._foreach_add_(m, g, alpha=1 - beta1)
+        torch._foreach_mul_(v, beta2)
+        torch._foreach_addcmul_(v, g, g, value=1 - beta2)
+        den = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        u = torch._foreach_div(m, bc1)
+        torch._foreach_div_(u, den)
+        idx = [i for i, d in enumerate(decay) if d]
+        if weight_decay and idx:
+            torch._foreach_add_([u[i] for i in idx], [p[i] for i in idx],
+                                alpha=weight_decay)
+        torch._foreach_add_(p, u, alpha=-lr)
 
 
 def make_dp_train_step(
@@ -124,23 +270,40 @@ def make_dp_train_step(
     (state, metrics), updating the masters in place; batch = dict img1 /
     img2 [B,H,W,3], gt1 / gt2 view dicts (losses.regr3d_conf_loss), or
     with accum_iter > 1 the [A, B, ...] stack of `stack_microbatches`.
-    metrics = dict(loss, lr, **details) as 0-d tensors (lr a float)."""
-    _not_ported(mesh, fsdp)
+    metrics = dict(loss, lr, **details) as 0-d tensors (lr a float).
+
+    mesh: a 1-D DeviceMesh; every rank passes the same global batch and
+    gets the same metrics (see the module docstring). fsdp (needs a
+    mesh): params / m / v in the state are this rank's flat chunks, and
+    state["dp"] holds the layout."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True needs a mesh")
+    dp = None if mesh is None else _DataParallel(mesh, fsdp)
     lr_sched = cosine_warmup_schedule(base_lr, min_lr, warmup_steps,
                                       total_steps)
     objective = _make_objective(cfg, loss_fn or regr3d_conf_loss, alpha,
-                                compute_dtype)
+                                compute_dtype, dp)
     eps = 1e-8
 
     def init_state(model):
         params = dict(model.named_parameters())
-        return dict(params=params,
-                    m={k: torch.zeros_like(p) for k, p in params.items()},
-                    v={k: torch.zeros_like(p) for k, p in params.items()},
-                    step=0, module=model)
+        state = dict(step=0, module=model,
+                     decay=[p.ndim >= 2 for p in params.values()])
+        if dp is not None:
+            dp.broadcast_(list(params.values()))
+            state["dp"] = dp
+        if fsdp:
+            shards = dp.shard([p.detach() for p in params.values()])
+            params = dict(zip(params, shards))
+            dp.free_params(model)
+        state.update(params=params,
+                     m={k: torch.zeros_like(p) for k, p in params.items()},
+                     v={k: torch.zeros_like(p) for k, p in params.items()})
+        return state
 
     def grads(model, batch):
-        """Averaged gradients into .grad; -> (loss, details)."""
+        """The step's gradients, this rank's part accumulated in .grad
+        over the micro-batches (averaged); -> (loss, details)."""
         for p in model.parameters():
             p.grad = None
         micro = ([batch] if accum_iter == 1 else
@@ -160,6 +323,8 @@ def make_dp_train_step(
 
     def train_step(state, batch):
         model = state["module"]
+        if fsdp:
+            dp.gather_params(model, state)
         dev = next(model.parameters()).device
         loss, details = grads(model, to_device(batch, dev))
         step = state["step"] + 1
@@ -173,27 +338,16 @@ def make_dp_train_step(
         # regr3d_conf, refinenet4's unused skip unit) has a zero gradient,
         # as in JAX: its moments decay and weight decay still applies
         g = [q.grad if q.grad is not None else torch.zeros_like(q)
-             for q in p]
-        m = [state["m"][k] for k in names]
-        v = [state["v"][k] for k in names]
-        with torch.no_grad():
-            torch._foreach_mul_(m, beta1)
-            torch._foreach_add_(m, g, alpha=1 - beta1)
-            torch._foreach_mul_(v, beta2)
-            torch._foreach_addcmul_(v, g, g, value=1 - beta2)
-            den = torch._foreach_div(v, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, eps)
-            u = torch._foreach_div(m, bc1)
-            torch._foreach_div_(u, den)
-            # decoupled weight decay on matrices and conv kernels only
-            decay = [i for i, q in enumerate(p) if q.ndim >= 2]
-            if weight_decay and decay:
-                torch._foreach_add_([u[i] for i in decay],
-                                    [p[i] for i in decay],
-                                    alpha=weight_decay)
-            torch._foreach_add_(p, u, alpha=-lr)
-        for q in p:
+             for q in model.parameters()]
+        if fsdp:
+            g = dp.reduce_scatter(g)
+            dp.free_params(model)
+        elif dp is not None:
+            g = dp.all_reduce(g)
+        _adamw(p, g, [state["m"][k] for k in names],
+               [state["v"][k] for k in names], state["decay"], lr, bc1, bc2,
+               beta1, beta2, eps, weight_decay)
+        for q in model.parameters():
             q.grad = None
         state["step"] = step
         return state, dict(loss=loss, lr=lr, **details)
@@ -202,12 +356,14 @@ def make_dp_train_step(
 
 
 def make_eval_step(cfg, loss_fn=None, alpha=0.2, compute_dtype=None,
-                   **_ignored):
-    """No-grad loss evaluation: (model, batch) -> (loss, details). Extra
-    kwargs (train_loop's training hyperparameters) are accepted and
+                   mesh=None, **_ignored):
+    """No-grad loss evaluation: (model, batch) -> (loss, details); with
+    `mesh` the batch is shared over the ranks as in the training step.
+    Extra kwargs (train_loop's training hyperparameters) are accepted and
     ignored, so one **kw config serves both steps."""
+    dp = None if mesh is None else _DataParallel(mesh, False)
     objective = _make_objective(cfg, loss_fn or regr3d_conf_loss, alpha,
-                                compute_dtype)
+                                compute_dtype, dp)
 
     def eval_step(model, batch):
         with torch.no_grad():
@@ -268,15 +424,35 @@ def _unflatten(items):
     return lists(root)
 
 
+def _full_groups(state):
+    """{group: {name: full tensor}}: an FSDP state's chunks gathered (a
+    collective: every rank calls it)."""
+    dp = state.get("dp")
+    out = {}
+    for group in _STATE_GROUPS:
+        if group not in state:
+            continue
+        tensors = state[group]
+        if dp is not None and dp.fsdp:
+            tensors = dict(zip(tensors, dp.unshard(list(tensors.values()))))
+        out[group] = tensors
+    return out
+
+
 def save_pretrain_checkpoint(path, state):
     """state (params / m / v name -> tensor dicts, step) -> one npz in the
     JAX package's layout; written to a temporary file and renamed, so a
-    kill mid-save never corrupts checkpoint-last."""
+    kill mid-save never corrupts checkpoint-last. Under a mesh every rank
+    calls it (an FSDP state's chunks are gathered) and rank 0 writes the
+    full tensors."""
+    full = _full_groups(state)
+    dp = state.get("dp")
+    if dp is not None and dp.rank != 0:
+        return
     flat = {}
-    for group in _STATE_GROUPS:
-        if group in state:
-            tree = convert.mast3r_to_numpy(state[group])
-            flat.update(_flatten(tree, f"[{group!r}]"))
+    for group, tensors in full.items():
+        tree = convert.mast3r_to_numpy(tensors)
+        flat.update(_flatten(tree, f"[{group!r}]"))
     flat["['step']"] = np.asarray(int(state["step"]), np.int32)
     tmp = f"{path}.tmp.npz"
     np.savez(tmp, **flat)
@@ -288,7 +464,9 @@ def load_pretrain_checkpoint(path, template_state):
     template holds (params / m / v, and step) is read by key path and
     copied into the template's tensors (their device and dtype); a key the
     file lacks raises KeyError. A params-only template reads only the
-    parameters. -> the template state."""
+    parameters. An FSDP template takes this rank's chunks of the full
+    tensors (every rank reads the file). -> the template state."""
+    dp = template_state.get("dp")
     with np.load(path) as z:
         for group in _STATE_GROUPS:
             if group not in template_state:
@@ -304,9 +482,13 @@ def load_pretrain_checkpoint(path, template_state):
             if missing:
                 raise KeyError(f"{path} lacks {pre} entries for "
                                f"{missing[:5]}")
+            src = [sd[name] for name in target]
+            if dp is not None and dp.fsdp:
+                dev = next(iter(target.values())).device
+                src = dp.shard([x.to(dev) for x in src])
             with torch.no_grad():
-                for name, t in target.items():
-                    t.copy_(sd[name])
+                for t, x in zip(target.values(), src):
+                    t.copy_(x)
         if "step" in template_state:
             template_state["step"] = int(z["['step']"])
     return template_state
@@ -327,13 +509,19 @@ def train_loop(model, cfg, batches: Iterator, mesh=None, n_steps=None,
     no-grad test pass every that many steps and at the end, appending
     ``(step, {'test_loss': ...})``. History steps count from 1. A
     non-finite loss raises FloatingPointError, checked at the log and
-    save boundaries (a per-step host read would stall the card)."""
-    _not_ported(mesh, kw.get("fsdp"))
+    save boundaries (a per-step host read would stall the card).
+
+    mesh: data-parallel (and with fsdp=True fully sharded) over a 1-D
+    mesh; every rank passes the same batches, rank 0 writes the
+    checkpoints, and every rank returns the whole trained model."""
+    fsdp = bool(kw.get("fsdp"))
     init_state, train_step, _ = make_dp_train_step(cfg, mesh=mesh, **kw)
-    eval_step = make_eval_step(cfg, **kw) if eval_batches is not None \
-        else None
+    eval_step = make_eval_step(cfg, mesh=mesh, **kw) \
+        if eval_batches is not None else None
 
     def run_eval(step):
+        if fsdp:
+            state["dp"].gather_params(model, state)
         totals, n = {}, 0
         for eb in eval_batches():
             loss, details = eval_step(model, eb)
@@ -342,6 +530,8 @@ def train_loop(model, cfg, batches: Iterator, mesh=None, n_steps=None,
                 totals[f"test_{k}"] = totals.get(f"test_{k}", 0.0) \
                     + float(v)
             n += 1
+        if fsdp:
+            state["dp"].free_params(model)
         if n:
             history.append((step, {k: v / n for k, v in totals.items()}))
 
@@ -349,7 +539,8 @@ def train_loop(model, cfg, batches: Iterator, mesh=None, n_steps=None,
     skip = 0
     ckpt_path = None
     if output_dir is not None:
-        os.makedirs(output_dir, exist_ok=True)
+        if mesh is None or state["dp"].rank == 0:
+            os.makedirs(output_dir, exist_ok=True)
         ckpt_path = os.path.join(output_dir, "checkpoint-last.npz")
         if os.path.isfile(ckpt_path):
             state = load_pretrain_checkpoint(ckpt_path, state)
@@ -391,6 +582,8 @@ def train_loop(model, cfg, batches: Iterator, mesh=None, n_steps=None,
     if eval_step is not None and metrics is not None and \
             int(state["step"]) != last_eval:
         run_eval(int(state["step"]))
+    if fsdp:
+        state["dp"].gather_params(model, state)
     return model, history
 
 

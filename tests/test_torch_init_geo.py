@@ -347,8 +347,13 @@ def test_cli_runs_on_cpu_and_needs_a_card_by_default(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             init_cli.main(argv)
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        init_cli.main(argv + ["--n_devices", "2", "--device", "cpu"])
+    # more cards than exist: refused before any rank starts
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards; 1 visible"):
+        init_cli.main(argv + ["--n_devices", "2"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="every local CUDA card"):
+        init_cli.main(argv + ["--n_devices", "-1", "--device", "cpu"])
     built = []
     build = mast3r.build_model
 

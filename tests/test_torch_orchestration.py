@@ -157,10 +157,24 @@ def test_stage_commands_are_jax_with_the_port_prefix(monkeypatch, tool, argv):
         assert args.device == device
 
 
-def test_n_devices_raises():
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        run_eval.main(["--data", "d", "--out", "o", "--scenes", "s",
-                       "--n_devices", "2"])
+def test_n_devices_raises(monkeypatch):
+    """--n_devices passes through to init_geo, train and the test render,
+    as in scripts/run_eval.py; a stage asked for more cards than exist
+    raises before any rank starts."""
+    args = run_eval.parse_args(["--data", "d", "--out", "o", "--scenes",
+                                "s", "--n_devices", "2"])
+    stages = run_eval.scene_stages(args, "s")[1]
+    sharded = [cmd[2].rsplit(".", 1)[1] for cmd, _ in stages
+               if cmd[-4:-2] == ["--n_devices", "2"]]
+    assert sharded == ["init_geo", "train", "render"]
+    assert "--skip_train" in [c for c, _ in stages
+                              if "--n_devices" in c][-1]
+    from instantsplat_tpu_torch.cli import train as train_cli
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    train_argv = list(stages[1][0][3:])
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards; 1 visible"):
+        train_cli.main(train_argv[:-2])  # its --device cuda default
 
 
 # --------------------------------------------------------------------------

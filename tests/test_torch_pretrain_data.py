@@ -442,6 +442,7 @@ def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(argv)
+    # a two-rank launch on a machine without cards: rank 0 has no cuda:0
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
-        tcli.main(argv + ["--device", "cpu"])
+    with pytest.raises(RuntimeError, match="needs cuda:0"):
+        tcli.main(argv)

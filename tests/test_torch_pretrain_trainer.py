@@ -293,11 +293,17 @@ def test_nonfinite_loss_aborts():
 
 
 def test_multi_device_paths_raise():
+    """FSDP needs a mesh, as in JAX; a mesh needs the ranks it names (the
+    data-parallel steps themselves: tests/test_torch_parallel_pretrain.py)."""
+    from instantsplat_tpu_torch.parallel import make_mesh
+
     model = tm.build_trainable("random:0", TINY, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tt.make_dp_train_step(TINY, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tt.make_dp_train_step(TINY, fsdp=True)
+    with pytest.raises(ValueError, match="needs a mesh"):
         tt.train_loop(model, TINY, iter([]), fsdp=True)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        tt.make_dp_train_step(TINY, mesh=make_mesh(2))
 
 
 def test_build_trainable_masters():

@@ -380,9 +380,16 @@ def test_render_cli_on_cpu(slice_runs, tmp_path, capsys):
 
 def test_render_cli_refuses_without_card_or_with_devices(slice_runs,
                                                          monkeypatch):
+    """More cards than exist are refused before any rank starts; without
+    a card the default device raises."""
     model = str(slice_runs["root"] / "port")
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        render_cli.main(["-m", model, "--device", "cpu", "--n_devices", "2"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards; 1 visible"):
+        render_cli.main(["-m", model, "--n_devices", "2"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="every local CUDA card"):
+        render_cli.main(["-m", model, "--device", "cpu", "--n_devices",
+                         "-1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         render_cli.main(["-m", model])
