@@ -2,8 +2,8 @@
 """Drive the PyTorch + CUDA port's stages 1, 2, 3 and 5, the tools
 around them (init_test_pose, run_eval, run_infer, the viewer, the
 validation sweep, the demo), the MASt3R sparse-alignment family, MASt3R
-pre-training and the multi-device layer, on one NVIDIA card and check
-them.
+pre-training, the multi-device layer and the structured render entry
+points, on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -187,13 +187,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pairs (300 iterations), and 3 float32 DDP and FSDP steps of the
    full-width MASt3R from phase 10's weights (2 pairs at 224x224, losses
    within 1e-4). KR, K1, K2, K3 and K4 must launch in the phase.
+12. The structured entry points (the JAX package's drop-ins for
+   rasterize.composite) on phase 4's dense model at 512x384, 100k splats:
+   prepare_sorted_splats bit-equal to prepare_packed_splats;
+   composite_tiles' forward bit-equal to composite_tiles_packed's and each
+   input's gradient equal to its columns of the d(packed) its own K2
+   launch wrote (log-opacity zero on invalid rows), that d(packed) within
+   1e-5 relative L2 of the packed call's; composite_tiles against
+   rasterize.composite's plain path (image 5e-4, gradients 1e-3 relative
+   L2); structured composite_tiles_binned / composite_tiles_2d at
+   capacities from bin_requirements / tile_requirements, forward
+   bit-equal to their _packed twins; project_gaussians on the card
+   against the CPU (1e-5). Prints the phase's seconds beside the card's
+   name and power limit. KR and K1-K6 must launch in the phase.
 
 The last lines are one JSON object {"kernels": [...]} with seven entries
 (each with `launches`, from its own path's run in phase 4,
 `launches_phase8`, from phase 8's in-process runs: its subprocess stages
 count in their own processes, `launches_phase9`, from phase 9's
 densification check, `launches_phase10`, 0 for every kernel, and
-`launches_phase11`, phase 11's in both of its processes), the
+`launches_phase11`, phase 11's in both of its processes, and
+`launches_phase12`, phase 12's), the
 nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
@@ -3225,6 +3239,211 @@ def stage_parallel(scene: Path, tmp: Path, dev, smi: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 12: the structured entry points
+# --------------------------------------------------------------------------
+
+
+def stage_structured(scene: Path, tmp: Path, dev, smi: str):
+    """Phase 12: the structured render path (the JAX package's drop-ins
+    for rasterize.composite) on phase 4's dense model at the training
+    shape. prepare_sorted_splats is bit-equal to prepare_packed_splats;
+    composite_tiles' forward is bit-equal to composite_tiles_packed's and
+    its gradients are the columns of the d(packed) its own K2 launch
+    wrote (log-opacity zero on invalid rows); composite_tiles against
+    rasterize.composite's plain path at phase 5's tolerances; structured
+    composite_tiles_binned / composite_tiles_2d bit-equal in the forward
+    to their packed twins; project_gaussians on the card against the CPU.
+    -> launches {KR, K1..K6} of the phase."""
+    import torch
+
+    from instantsplat_tpu_torch.ops import projection, rasterize
+    from instantsplat_tpu_torch.ops import rasterize_pallas as RP
+    from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
+    from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
+    from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
+    from instantsplat_tpu_torch.render import driver
+    from instantsplat_tpu_torch.utils import transforms as T
+
+    t_phase = time.time()
+    driver._guard = driver._OverflowGuard()
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    params, _ = load_trained(tmp / "dense", -1, sh_degree=3, device=dev)
+    cam = initial_params(scene, dev)[1][0]
+    pose = cam.pose
+    args = (params, pose, cam.fx, cam.fy, cam.cx, cam.cy, 1.0,
+            params.max_sh_degree, H, W)
+    with torch.no_grad():
+        splats, _ = driver.prepare_sorted_splats(*args)
+        packed, _ = driver.prepare_packed_splats(*args)
+    joined = torch.cat([splats[0], splats[1], splats[2][:, None], splats[3],
+                        splats[4][:, None]], 1)
+    valid = splats[5]
+    n_valid = int(valid.sum())
+    if not (torch.equal(joined, packed)
+            and torch.equal(valid, packed[:, 9] < 1e30)):
+        fail("phase 12: prepare_sorted_splats differs from "
+             "prepare_packed_splats")
+    log(f"phase 12 prepare_sorted_splats: N={packed.shape[0]} ({n_valid} "
+        "valid) bit-equal to prepare_packed_splats")
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cot = [torch.randn(shape, generator=gen, device=dev)
+           for shape in ((H, W, 3), (H, W), (H, W))]
+    cot[2] *= 1e-2  # depth cotangent at a scale like the colors'
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def loss_of(out):
+        return sum((o * c).sum()
+                   for o, c in zip((out.rgb, out.alpha, out.depth), cot))
+
+    def structured(fn, **kw):
+        """fn over leaf copies of the six arrays and bg -> (out, grads of
+        the five float arrays and bg)."""
+        leaves = [x.clone().requires_grad_(True) for x in splats[:5]]
+        b = bg.clone().requires_grad_(True)
+        out = fn(*leaves, valid, H, W, b, **kw)
+        return out, torch.autograd.grad(loss_of(out), leaves + [b])
+
+    def packed_twin(fn, *caps):
+        p = packed.clone().requires_grad_(True)
+        out = fn(p, H, W, bg, *caps)
+        return out, torch.autograd.grad(loss_of(out), [p])[0]
+
+    def same_forward(a, b):
+        return all(torch.equal(getattr(a, n), getattr(b, n))
+                   for n in ("rgb", "alpha", "depth"))
+
+    # composite_tiles: the d(packed) of its own K2 launch, recorded
+    k2_out = []
+    k2 = RP.k2_backward
+
+    def recording_k2(*a):
+        k2_out.append(k2(*a))
+        return k2_out[-1]
+
+    RP.k2_backward = recording_k2
+    try:
+        out_s, grads_s = structured(RP.composite_tiles)
+    finally:
+        RP.k2_backward = k2
+    out_p, d_packed = packed_twin(RP.composite_tiles_packed)
+    if not same_forward(out_s, out_p):
+        fail("phase 12: composite_tiles' forward differs from "
+             "composite_tiles_packed's")
+    (d_own,) = k2_out
+    columns = (slice(0, 2), slice(2, 5), 5, slice(6, 9), 9)
+    for name, g, col in zip(("mean2d", "conic", "log_opacity", "colors",
+                             "depth"), grads_s, columns):
+        want = d_own[:, col]
+        if name == "log_opacity":
+            want = torch.where(valid, want, torch.zeros_like(want))
+        if not (torch.isfinite(g).all() and torch.equal(g, want)):
+            fail(f"phase 12 composite_tiles: d({name}) is not its columns "
+                 "of d(packed)")
+    e_twin = rel_l2(d_own, d_packed)
+    log(f"phase 12 composite_tiles: forward bit-equal to "
+        f"composite_tiles_packed; each input's gradient equals its columns "
+        f"of d(packed) (log-opacity zero on the {packed.shape[0] - n_valid} "
+        f"invalid rows); d(packed) relative L2 to the packed call's own "
+        f"backward {e_twin:.3e} (K2 adds with atomics)")
+    if e_twin > 1e-5:
+        fail("phase 12 composite_tiles: d(packed) differs from the packed "
+             "call's")
+
+    # against rasterize.composite's plain path
+    t0 = time.time()
+    out_r, grads_r = structured(rasterize.composite)
+    plain_s = time.time() - t0
+    errs = {n: float((getattr(out_s, n) - getattr(out_r, n)).detach()
+                     .abs().max()) for n in ("rgb", "alpha", "depth")}
+    e_grad = rel_l2(torch.cat([g.reshape(-1) for g in grads_s]),
+                    torch.cat([g.reshape(-1) for g in grads_r]))
+    log(f"phase 12 composite_tiles against rasterize.composite (plain, "
+        f"{plain_s:.1f} s forward + backward) [{smi}]: max |d| "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f"; gradients relative L2 {e_grad:.3e}")
+    if max(errs.values()) > 5e-4 or not e_grad <= 1e-3:
+        fail("phase 12: composite_tiles differs from rasterize.composite "
+             "beyond 5e-4 (image) / 1e-3 (gradient)")
+
+    # the structured list compositors against their packed twins
+    cols4 = (splats[0], splats[1], splats[2], valid)
+    lists = {
+        "binned": (RB.composite_tiles_binned,
+                   RB.composite_tiles_binned_packed,
+                   dict(zip(("cap_factor", "d_levels"),
+                            RB.bin_requirements(*cols4, H, W)))),
+        "tiled": (RT.composite_tiles_2d, RT.composite_tiles_2d_packed,
+                  dict(zip(("cap_factor", "dy_levels", "dx_levels"),
+                           RT.tile_requirements(*cols4, H, W))))}
+    for kind, (fn, twin, caps) in lists.items():
+        out_l, grads_l = structured(fn, **caps)
+        out_t, d_t = packed_twin(twin, *caps.values())
+        if not same_forward(out_l, out_t):
+            fail(f"phase 12 {fn.__name__}: forward differs from "
+                 f"{twin.__name__}")
+        e_l = rel_l2(torch.cat([grads_l[0], grads_l[1], grads_l[3]], 1),
+                     torch.cat([d_t[:, 0:5], d_t[:, 6:9]], 1))
+        log(f"phase 12 {fn.__name__} {caps}: forward bit-equal to "
+            f"{twin.__name__}; mean2d/conic/colors gradients relative L2 "
+            f"{e_l:.3e} to the packed call's (atomics)")
+        if e_l > 1e-5:
+            fail(f"phase 12 {fn.__name__}: gradients differ from "
+                 f"{twin.__name__}'s")
+    leaves = [x.clone().requires_grad_(True) for x in splats[:5]]
+    p = packed.clone().requires_grad_(True)
+    fwd_bwd_ms = {
+        "composite_tiles": cuda_ms(lambda: torch.autograd.grad(loss_of(
+            RP.composite_tiles(*leaves, valid, H, W, bg)), leaves), 10),
+        "composite_tiles_packed": cuda_ms(lambda: torch.autograd.grad(
+            loss_of(RP.composite_tiles_packed(p, H, W, bg)), [p]), 10)}
+    log(f"phase 12 forward + backward ms [{smi}]: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in fwd_bwd_ms.items()))
+
+    # project_gaussians on the card against the CPU
+    with torch.no_grad():
+        geo = (params.xyz, params.get_covariance(),
+               T.quat_to_rotmat(pose[:4]), pose[4:],
+               cam.fx, cam.fy, cam.cx, cam.cy)
+        on_card = projection.project_gaussians(*geo, W, H)
+        on_cpu = projection.project_gaussians(*(x.cpu() for x in geo), W, H)
+    both = on_card.valid.cpu() & on_cpu.valid
+    agree = float((on_card.valid.cpu() == on_cpu.valid).float().mean())
+
+    def rel(a, b):
+        return float((a[both] - b[both]).abs().max() / b[both].abs().max())
+
+    # The conic inverts cov2d: a*c - b*b cancels, so the cov2d's ~1e-7
+    # difference (cuBLAS against the CPU's einsum order) grows by the 2x2's
+    # condition number. The card's conic is judged as the inverse of the
+    # card's cov2d, computed on the CPU, beside cov2d against the CPU.
+    a, b, c = on_card.cov2d.cpu().unbind(-1)
+    det = a * c - b * b
+    inv_det = 1.0 / torch.where(det <= 0, torch.ones_like(det), det)
+    e_proj = {name: rel(getattr(on_card, name).cpu(), getattr(on_cpu, name))
+              for name in ("mean2d", "cov2d", "depth")}
+    e_proj["conic (of the card's cov2d)"] = rel(
+        on_card.conic.cpu(), torch.stack([c, -b, a], -1) * inv_det[:, None])
+    log(f"phase 12 project_gaussians card against CPU: valid agree on "
+        f"{agree * 100:.4f}%; max |d| / max |CPU| " + ", ".join(
+            f"{n} {e:.3e}" for n, e in e_proj.items())
+        + f"; conic against the CPU's {rel(on_card.conic.cpu(), on_cpu.conic):.3e}")
+    if agree < 0.9999 or max(e_proj.values()) > 1e-5:
+        fail("phase 12: project_gaussians differs on the card beyond 1e-5")
+
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"phase 12 [{smi}]: {time.time() - t_phase:.1f} s; launches "
+        f"{launches}")
+    if any(n == 0 for n in launches.values()):
+        fail(f"phase 12: a kernel of the structured entries never launched "
+             f"({launches})")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -3406,11 +3625,16 @@ def main():
         # ---- phase 11: the multi-device layer ----------------------------
         log(f"{time.time() - t_start:.0f} s since the start")
         phase11 = stage_parallel(scene, Path(tmp), dev, smi)
+
+        # ---- phase 12: the structured entry points -----------------------
+        log(f"{time.time() - t_start:.0f} s since the start")
+        phase12 = stage_structured(scene, Path(tmp), dev, smi)
         for row in rows:
             row["launches_phase8"] = phase8[row["name"].split()[0]]
             row["launches_phase9"] = phase9[row["name"].split()[0]]
             row["launches_phase10"] = phase10[row["name"].split()[0]]
             row["launches_phase11"] = phase11[row["name"].split()[0]]
+            row["launches_phase12"] = phase12[row["name"].split()[0]]
         log(f"{time.time() - t_start:.0f} s since the start")
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -74,7 +74,8 @@ def build_parser() -> ArgumentParser:
                         help="bf16 mixed precision (the reference's --amp)")
     parser.add_argument("--fsdp", action="store_true",
                         help="shard parameters and Adam moments over the "
-                             "devices (needs several; not ported yet)")
+                             "data ranks (ZeRO-3-style; cuts optimizer "
+                             "memory by the number of devices)")
     parser.add_argument("--output_dir", default=None,
                         help="checkpoint dir; auto-resumes from "
                              "checkpoint-last.npz when present")

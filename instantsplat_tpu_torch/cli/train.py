@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from argparse import ArgumentParser
 
-from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
 from instantsplat_tpu_torch.parallel import launch, runtime
 from instantsplat_tpu_torch.pipelines import config as C
 from instantsplat_tpu_torch.pipelines.train_pipeline import run_training
@@ -34,7 +33,7 @@ def build_parser() -> ArgumentParser:
                          "images": "i", "resolution": "r",
                          "white_background": "w"})
     C.add_group(parser, C.PipelineParams)
-    C.add_group(parser, OptimizationConfig)
+    C.add_opt_group(parser)
     parser.add_argument("--save_iterations", nargs="+", type=int, default=[])
     parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
                         default=[])

@@ -172,6 +172,13 @@ def default_lpips() -> Optional[LpipsVGG]:
     return _DEFAULT
 
 
+def lpips_pair(model: LpipsVGG, x: torch.Tensor,
+               y: torch.Tensor) -> torch.Tensor:
+    """LPIPS distance (0-dim) between [H, W, 3] images in [0, 1] with
+    `model`, differentiable in x and y."""
+    return model(x, y)
+
+
 def lpips(x: torch.Tensor, y: torch.Tensor,
           model: Optional[LpipsVGG] = None) -> torch.Tensor:
     """LPIPS of two [H, W, 3] images in [0, 1] with `model`, else the
@@ -183,4 +190,4 @@ def lpips(x: torch.Tensor, y: torch.Tensor,
             "Load them with LpipsVGG.from_torch_files(vgg16 features, "
             "lpips vgg.pth) and pass them or set_default_lpips(...).")
     with torch.no_grad():
-        return model(x, y)
+        return lpips_pair(model, x, y)

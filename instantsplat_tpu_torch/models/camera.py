@@ -32,6 +32,7 @@ class Camera:
     fx, fy, cx, cy: 0-dim float32 tensors, in pixels.
     image: optional [H, W, 3] ground truth in [0, 1].
     uid: index of the camera's learnable pose in GaussianModel.cam_poses.
+    znear, zfar: the reference's clip planes (get_projection_matrix).
     """
 
     pose: torch.Tensor
@@ -43,6 +44,8 @@ class Camera:
     uid: int = 0
     height: int = 0
     width: int = 0
+    znear: float = 0.01
+    zfar: float = 100.0
 
     @classmethod
     def create(cls, R, t, fx: float, fy: float, height: int, width: int,
@@ -71,3 +74,47 @@ class Camera:
             height=int(height),
             width=int(width),
         )
+
+    @property
+    def w2c(self) -> torch.Tensor:
+        return T.pose_to_matrix(self.pose)
+
+    @property
+    def c2w(self) -> torch.Tensor:
+        return T.se3_inverse(self.w2c)
+
+    @property
+    def center(self) -> torch.Tensor:
+        """Camera centre in world coordinates."""
+        return self.c2w[..., :3, 3]
+
+    @property
+    def fovx(self) -> torch.Tensor:
+        return 2 * torch.arctan(self.width / (2 * self.fx))
+
+    @property
+    def fovy(self) -> torch.Tensor:
+        return 2 * torch.arctan(self.height / (2 * self.fy))
+
+    def replace(self, **kw) -> "Camera":
+        return dataclasses.replace(self, **kw)
+
+
+def stack_cameras(cams: list[Camera]) -> Camera:
+    """Same-resolution cameras -> one Camera of [V, ...] tensors (uid an
+    int64 [V] tensor); height, width, znear and zfar stay scalars."""
+    assert len({(c.height, c.width) for c in cams}) == 1, \
+        "resolutions must match"
+    c0 = cams[0]
+    images = [c.image for c in cams]
+    return dataclasses.replace(
+        c0,
+        pose=torch.stack([c.pose for c in cams]),
+        fx=torch.stack([c.fx for c in cams]),
+        fy=torch.stack([c.fy for c in cams]),
+        cx=torch.stack([c.cx for c in cams]),
+        cy=torch.stack([c.cy for c in cams]),
+        image=None if images[0] is None else torch.stack(images),
+        uid=torch.tensor([int(c.uid) for c in cams], dtype=torch.int64,
+                         device=c0.pose.device),
+    )

@@ -45,8 +45,34 @@ class GaussianModel:
     def num_points(self) -> int:
         return self.xyz.shape[0]
 
+    @property
+    def num_views(self) -> int:
+        return self.cam_poses.shape[0]
+
+    def get_scaling(self) -> torch.Tensor:
+        return torch.exp(self.scaling)
+
+    def get_opacity(self) -> torch.Tensor:
+        return torch.sigmoid(self.opacity)
+
+    def get_rotation(self) -> torch.Tensor:
+        return T.quat_normalize(self.rotation)
+
+    def get_features(self) -> torch.Tensor:
+        """[N, (D+1)^2, 3] full SH coefficient stack."""
+        return torch.cat([self.features_dc, self.features_rest], dim=1)
+
     def get_pose(self, uid) -> torch.Tensor:
         return self.cam_poses[uid]
+
+    def get_covariance(self, scale_modifier: float = 1.0) -> torch.Tensor:
+        """World-space covariance [N, 3, 3] per Gaussian: (R S)(R S)^T."""
+        L = T.quat_to_rotmat(self.get_rotation()) * (
+            self.get_scaling() * scale_modifier)[:, None, :]
+        return L @ L.transpose(-1, -2)
+
+    def replace(self, **kw) -> "GaussianModel":
+        return dataclasses.replace(self, **kw)
 
     def tensors(self) -> list[torch.Tensor]:
         return [getattr(self, f) for f in PARAM_FIELDS]

@@ -153,8 +153,8 @@ def infer_pairs_mixed(model: mast3r.MASt3R, images, pairs,
 
 
 def make_pointmap_fn(ckpt_path: str, batch_size: int = 8,
-                     cfg: mast3r.MASt3RConfig | None = None, dtype=None,
-                     device="cuda", mesh=None):
+                     cfg: mast3r.MASt3RConfig | None = None, mesh=None,
+                     dtype=None, device="cuda"):
     """-> pointmap_fn(images, pairs) for pipelines.init_geo_pipeline.
 
     ckpt_path: an upstream MASt3R .pth, or "random" / "random:SEED" for the

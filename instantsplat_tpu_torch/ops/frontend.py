@@ -15,11 +15,9 @@ from typing import NamedTuple
 
 import torch
 
+from instantsplat_tpu_torch.ops.projection import LOW_PASS, NEAR_CULL_Z
 from instantsplat_tpu_torch.utils import transforms as T
 from instantsplat_tpu_torch.utils.sh import C0, C1, C2, C3, C4
-
-NEAR_CULL_Z = 0.2  # CUDA rasterizer's in_frustum near plane
-LOW_PASS = 0.3  # screen-space dilation added to the cov2D diagonal
 
 
 class FrontendCols(NamedTuple):

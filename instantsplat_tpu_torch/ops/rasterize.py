@@ -160,14 +160,32 @@ def cutoff_radius(conic, log_opacity, valid):
     return torch.where(ok & (m > 0.0), r, torch.full_like(r, -1.0))
 
 
-def composite(mean2d, conic, log_opacity, colors, depth, valid,
-              height: int, width: int, bg: Optional[torch.Tensor] = None,
-              chunk: int = 256) -> CompositeOut:
-    """Composite depth-sorted Gaussians over the full image (the "oracle"
-    backend). All per-Gaussian arrays must already be sorted front to back."""
+def pack_columns(mean2d, conic, log_opacity, colors, depth, valid):
+    """Column-stack depth-sorted splats into the packed [N, 10] layout:
+    mx, my, conic a b c, log-opacity (-inf on invalid rows), r, g, b,
+    depth."""
     lo = torch.where(valid, log_opacity,
                      torch.full_like(log_opacity, -torch.inf))
-    packed = torch.cat([mean2d, conic, lo[:, None], colors, depth[:, None]],
-                       dim=1)
-    acc, tfin, _ = composite_plain(packed, height, width, chunk)
+    return torch.cat([mean2d, conic, lo[:, None], colors, depth[:, None]],
+                     dim=1)
+
+
+def composite(mean2d, conic, log_opacity, colors, depth, valid,
+              height: int, width: int, bg: Optional[torch.Tensor] = None,
+              chunk: int = 256, with_depth: bool = True,
+              y_offset: float = 0.0) -> CompositeOut:
+    """Composite depth-sorted Gaussians over the full image (the "oracle"
+    backend). All per-Gaussian arrays must already be sorted front to back
+    (`sort_by_depth`). with_depth=False leaves the depth map zero;
+    `y_offset` composites the rows [y_offset, y_offset + height)."""
+    if not with_depth:
+        depth = torch.zeros_like(depth)
+    packed = pack_columns(mean2d, conic, log_opacity, colors, depth, valid)
+    acc, tfin, _ = composite_plain(packed, height, width, chunk, y_offset)
     return composite_out(acc, tfin, bg)
+
+
+def sort_by_depth(depth: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Front-to-back order: a stable argsort of view z, invalid last."""
+    key = torch.where(valid, depth, torch.full_like(depth, torch.inf))
+    return torch.sort(key, stable=True).indices

@@ -10,7 +10,9 @@ TPU version needed for its own layout is not carried over: the 128-lane
 width padding, the VMEM strips, the bf16-split MXU prefix sums, the
 per-strip backward loop.
 
-`composite_tiles_packed` is the entry point. On a CPU tensor it runs the
+`composite_tiles_packed` is the entry point; `composite_tiles` is its
+structured twin, a drop-in for rasterize.composite that takes the six
+sorted arrays and packs them (`pack_splats`). On a CPU tensor it runs the
 plain PyTorch version (`composite_plain`, ops/rasterize.py) and its
 autograd; on a CUDA tensor it launches k1_rects (tile rectangles and the
 scan's coarse mask, one kernel) and K1 and, in the backward,
@@ -39,6 +41,7 @@ from instantsplat_tpu_torch.ops.rasterize import (  # noqa: F401 (re-export)
     composite_out,
     composite_plain,
     cutoff_radius,
+    pack_columns,
 )
 
 TILE = 16  # pixels per tile side (csrc/rasterize.cu TILE)
@@ -377,3 +380,21 @@ def composite_tiles_packed(packed: torch.Tensor, height: int, width: int,
     conic a b c, log-opacity (-inf = invalid), r, g, b, depth).
     Differentiable w.r.t. `packed` and `bg`."""
     return composite_out(*composite_packed(packed, height, width), bg)
+
+
+def pack_splats(mean2d, conic, log_opacity, colors, depth, valid):
+    """Column-stack depth-sorted splats into the packed [N, 10] layout
+    (-inf log-opacity on invalid rows). The render path builds it straight
+    out of the depth sort (render/driver.prepare_packed_splats); this is
+    for callers that hold the six sorted arrays."""
+    return pack_columns(mean2d, conic, log_opacity, colors, depth, valid)
+
+
+def composite_tiles(mean2d, conic, log_opacity, colors, depth, valid,
+                    height: int, width: int, bg=None) -> CompositeOut:
+    """Drop-in for rasterize.composite over the dense kernels: the arrays
+    must be sorted front to back (rasterize.sort_by_depth). Differentiable
+    w.r.t. every float input and `bg`; invalid rows get zero gradient."""
+    return composite_tiles_packed(
+        pack_splats(mean2d, conic, log_opacity, colors, depth, valid),
+        height, width, bg)

@@ -39,7 +39,7 @@ from instantsplat_tpu_torch.ops.rasterize_lists import (
     round_up,
     splat_valid,
 )
-from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
+from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel, pack_splats
 
 BLOCK_ROWS = 4
 STRIP_ROWS = 512  # the TPU strip height; bounds the sizing's per-strip max
@@ -96,9 +96,11 @@ def bin_lists(packed: torch.Tensor, height: int, width: int,
                        geom.n_rows * BLOCK_ROWS, cap, dl), geom
 
 
-def composite_tiles_binned(packed: torch.Tensor, height: int, width: int,
-                           bg=None, cap_factor: int | None = None,
-                           d_levels: int | None = None) -> CompositeOut:
+def composite_tiles_binned_packed(packed: torch.Tensor, height: int,
+                                  width: int, bg=None,
+                                  cap_factor: int | None = None,
+                                  d_levels: int | None = None
+                                  ) -> CompositeOut:
     """Composite a packed, depth-sorted [N, 10] splat array (columns mx, my,
     conic a b c, log-opacity (-inf = invalid), r, g, b, depth) over row-band
     lists: K3/K4 for a CUDA tensor, the plain version for a CPU one.
@@ -106,6 +108,18 @@ def composite_tiles_binned(packed: torch.Tensor, height: int, width: int,
     lists, geom = bin_lists(packed, height, width, cap_factor, d_levels)
     acc, tfin = composite_lists(packed, lists, geom, height, width, K3, K4)
     return composite_out(acc, tfin, bg)
+
+
+def composite_tiles_binned(mean2d, conic, log_opacity, colors, depth, valid,
+                           height: int, width: int, bg=None,
+                           cap_factor: int | None = None,
+                           d_levels: int | None = None) -> CompositeOut:
+    """Drop-in for rasterize.composite over the binned kernels: the six
+    depth-sorted arrays, packed and composited by
+    `composite_tiles_binned_packed`."""
+    return composite_tiles_binned_packed(
+        pack_splats(mean2d, conic, log_opacity, colors, depth, valid),
+        height, width, bg, cap_factor, d_levels)
 
 
 def bin_overflow(mean2d, conic, log_opacity, valid, height: int, width: int,

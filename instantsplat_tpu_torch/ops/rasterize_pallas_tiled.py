@@ -38,7 +38,7 @@ from instantsplat_tpu_torch.ops.rasterize_lists import (
     round_up,
     splat_valid,
 )
-from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
+from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel, pack_splats
 
 BLOCK_ROWS = 8
 COL_W = 128
@@ -106,10 +106,10 @@ def tile_lists(packed: torch.Tensor, height: int, width: int,
                         cap, dy, dx), geom
 
 
-def composite_tiles_2d(packed: torch.Tensor, height: int, width: int,
-                       bg=None, cap_factor: int | None = None,
-                       dy_levels: int | None = None,
-                       dx_levels: int | None = None) -> CompositeOut:
+def composite_tiles_2d_packed(packed: torch.Tensor, height: int, width: int,
+                              bg=None, cap_factor: int | None = None,
+                              dy_levels: int | None = None,
+                              dx_levels: int | None = None) -> CompositeOut:
     """Composite a packed, depth-sorted [N, 10] splat array (columns mx, my,
     conic a b c, log-opacity (-inf = invalid), r, g, b, depth) over 2-D
     tile lists: K5/K6 for a CUDA tensor, the plain version for a CPU one.
@@ -118,6 +118,19 @@ def composite_tiles_2d(packed: torch.Tensor, height: int, width: int,
                              dx_levels)
     acc, tfin = composite_lists(packed, lists, geom, height, width, K5, K6)
     return composite_out(acc, tfin, bg)
+
+
+def composite_tiles_2d(mean2d, conic, log_opacity, colors, depth, valid,
+                       height: int, width: int, bg=None,
+                       cap_factor: int | None = None,
+                       dy_levels: int | None = None,
+                       dx_levels: int | None = None) -> CompositeOut:
+    """Drop-in for rasterize.composite over the tiled kernels: the six
+    depth-sorted arrays, packed and composited by
+    `composite_tiles_2d_packed`."""
+    return composite_tiles_2d_packed(
+        pack_splats(mean2d, conic, log_opacity, colors, depth, valid),
+        height, width, bg, cap_factor, dy_levels, dx_levels)
 
 
 def tile_overflow(mean2d, conic, log_opacity, valid, height: int,

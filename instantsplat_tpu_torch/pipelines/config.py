@@ -70,6 +70,11 @@ def make_opt_config(args: Namespace) -> OptimizationConfig:
         if hasattr(args, f.name)})
 
 
+def add_opt_group(parser: ArgumentParser):
+    """Register OptimizationConfig's fields as CLI args."""
+    add_group(parser, OptimizationConfig)
+
+
 def save_cfg_args(model_path, args: Namespace):
     """Dump the Namespace repr to <model_path>/cfg_args."""
     Path(model_path).mkdir(parents=True, exist_ok=True)

@@ -48,9 +48,9 @@ def run_init_geo(
     co_vis_dsp=False,
     infer_video=False,
     save_all_pts=False,
+    mesh=None,
     max_pts=int(150e10),
     device="cuda",
-    mesh=None,
 ):
     """Returns the GlobalAligner (with the optimized scene) after writing
     all stage-1 artifacts under <source_path>/sparse_{n_views}/{0,1}. The

@@ -69,6 +69,21 @@ def prepare_packed_splats(gaussians, pose, fx, fy, cx, cy, scale_modifier,
     return torch.cat([packed, key_sorted[:, None]], dim=1), cols
 
 
+def prepare_sorted_splats(gaussians, pose, fx, fy, cx, cy, scale_modifier,
+                          active_sh_degree: int, height: int, width: int):
+    """The front end and depth sort of `prepare_packed_splats`, as six
+    arrays sorted front to back: ((mean2d [N, 2], conic [N, 3],
+    log_opacity [N] (-inf on invalid rows), colors [N, 3], depth [N] (the
+    sorted key: the finite sentinel on invalid rows), valid [N]), the
+    unsorted FrontendCols). Views of the one packed array."""
+    packed, cols = prepare_packed_splats(
+        gaussians, pose, fx, fy, cx, cy, scale_modifier, active_sh_degree,
+        height, width)
+    depth = packed[:, 9]
+    return (packed[:, 0:2], packed[:, 2:5], packed[:, 5], packed[:, 6:9],
+            depth, depth < _INVALID_DEPTH), cols
+
+
 def _parse_binned_caps(backend: str):
     """"pallas-binned[:CF:DL]" -> (cap_factor | None, d_levels | None)."""
     parts = backend.split(":")
@@ -226,11 +241,11 @@ def render(gaussians, camera, pose: Optional[torch.Tensor] = None,
         out = rasterize.composite_out(acc, tfin, bg)
     elif backend.startswith("pallas-binned"):
         cf, dl = _parse_binned_caps(backend)
-        out = rasterize_pallas_binned.composite_tiles_binned(
+        out = rasterize_pallas_binned.composite_tiles_binned_packed(
             packed, h, w, bg, cap_factor=cf, d_levels=dl)
     else:
         cf, dy, dx = _parse_tiled_caps(backend)
-        out = rasterize_pallas_tiled.composite_tiles_2d(
+        out = rasterize_pallas_tiled.composite_tiles_2d_packed(
             packed, h, w, bg, cap_factor=cf, dy_levels=dy, dx_levels=dx)
     return RenderOut(render=out.rgb, alpha=out.alpha, depth=out.depth,
                      radii=cols.radius, visibility=cols.valid)

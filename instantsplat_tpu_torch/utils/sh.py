@@ -1,7 +1,10 @@
-"""Real spherical-harmonics constants (degrees 0..4) and RGB <-> DC SH.
+"""Real spherical harmonics (degrees 0..4): constants, evaluation at unit
+directions, and RGB <-> DC SH.
 
 Port of instantsplat_tpu/utils/sh.py: the same constants, so ply SH
-coefficients round-trip between the two packages.
+coefficients round-trip between the two packages. The render path shades
+in column form (ops/frontend.py::_sh_colors); `eval_sh` is the [..., K, C]
+form for other callers.
 """
 
 from __future__ import annotations
@@ -41,6 +44,62 @@ def num_sh_coeffs(deg: int) -> int:
     return (deg + 1) ** 2
 
 
+def eval_sh(deg: int, sh, dirs):
+    """SH colour at unit directions: sh [..., K, C] coefficients with K >=
+    (deg + 1)^2, dirs [..., 3] -> [..., C], before the caller's +0.5 shift
+    and clamp."""
+    assert 0 <= deg <= 4
+    result = C0 * sh[..., 0, :]
+    if deg == 0:
+        return result
+    x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+    result = (result - C1 * y * sh[..., 1, :] + C1 * z * sh[..., 2, :]
+              - C1 * x * sh[..., 3, :])
+    if deg == 1:
+        return result
+    xx, yy, zz = x * x, y * y, z * z
+    xy, yz, xz = x * y, y * z, x * z
+    result = (
+        result
+        + C2[0] * xy * sh[..., 4, :]
+        + C2[1] * yz * sh[..., 5, :]
+        + C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
+        + C2[3] * xz * sh[..., 7, :]
+        + C2[4] * (xx - yy) * sh[..., 8, :]
+    )
+    if deg == 2:
+        return result
+    result = (
+        result
+        + C3[0] * y * (3 * xx - yy) * sh[..., 9, :]
+        + C3[1] * xy * z * sh[..., 10, :]
+        + C3[2] * y * (4 * zz - xx - yy) * sh[..., 11, :]
+        + C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[..., 12, :]
+        + C3[4] * x * (4 * zz - xx - yy) * sh[..., 13, :]
+        + C3[5] * z * (xx - yy) * sh[..., 14, :]
+        + C3[6] * x * (xx - 3 * yy) * sh[..., 15, :]
+    )
+    if deg == 3:
+        return result
+    return (
+        result
+        + C4[0] * xy * (xx - yy) * sh[..., 16, :]
+        + C4[1] * yz * (3 * xx - yy) * sh[..., 17, :]
+        + C4[2] * xy * (7 * zz - 1) * sh[..., 18, :]
+        + C4[3] * yz * (7 * zz - 3) * sh[..., 19, :]
+        + C4[4] * (zz * (35 * zz - 30) + 3) * sh[..., 20, :]
+        + C4[5] * xz * (7 * zz - 3) * sh[..., 21, :]
+        + C4[6] * (xx - yy) * (7 * zz - 1) * sh[..., 22, :]
+        + C4[7] * xz * (xx - 3 * yy) * sh[..., 23, :]
+        + C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)) * sh[..., 24, :]
+    )
+
+
 def rgb_to_sh(rgb):
     """RGB in [0,1] -> DC SH coefficient."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    """DC SH coefficient -> RGB."""
+    return sh * C0 + 0.5

@@ -120,6 +120,12 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return quat_normalize(q)
 
 
+def matrix_to_pose(M: torch.Tensor) -> torch.Tensor:
+    """World-to-camera matrices [..., 4, 4] -> pose vectors [..., 7]
+    (quaternion with w >= 0, then translation); differentiable."""
+    return torch.cat([rotmat_to_quat(M[..., :3, :3]), M[..., :3, 3]], dim=-1)
+
+
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product of wxyz quaternions [..., 4]."""
     w1, x1, y1, z1 = q1.unbind(-1)

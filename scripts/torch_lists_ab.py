@@ -12,8 +12,9 @@ imports `instantsplat_tpu_torch` and `chip_smoke` from that tree, builds its
 kernels, writes chip_smoke's synthetic scene (100k points, 512x384), trains
 it 200 iterations with --backend pallas, and then, for the initial and the
 trained splats of view 0 and for each of the two backends, measures through
-the public autograd entries `composite_tiles_binned` and
-`composite_tiles_2d`, which are the same in every tree, with the capacities
+the public packed autograd entries `composite_tiles_binned_packed` and
+`composite_tiles_2d_packed` (named without `_packed` in trees that predate
+the structured entries), with the capacities
 the tree's own requirements give for those splats:
 
 - CUDA-event ms of the forward and of forward + backward, list build (keys,
@@ -56,10 +57,8 @@ def measure(tree: Path) -> dict:
 
     sys.path.insert(0, str(tree))
     import chip_smoke as cs
-    from instantsplat_tpu_torch.ops.rasterize_pallas_binned import (
-        composite_tiles_binned)
-    from instantsplat_tpu_torch.ops.rasterize_pallas_tiled import (
-        composite_tiles_2d)
+    from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
+    from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
     from instantsplat_tpu_torch.render.driver import prepare_packed_splats
 
     if not torch.cuda.is_available():
@@ -81,7 +80,11 @@ def measure(tree: Path) -> dict:
         initial, cams = cs.initial_params(scene, dev)
         trained = cs.train_run(scene, Path(tmp) / "out", "pallas", 100)[0]
     cam = cams[0]
-    entries = {"binned": composite_tiles_binned, "tiled": composite_tiles_2d}
+    entries = {
+        "binned": getattr(RB, "composite_tiles_binned_packed", None)
+        or RB.composite_tiles_binned,
+        "tiled": getattr(RT, "composite_tiles_2d_packed", None)
+        or RT.composite_tiles_2d}
     for tag, params in (("initial", initial), ("trained", trained)):
         with torch.no_grad():
             packed, _ = prepare_packed_splats(

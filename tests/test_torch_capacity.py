@@ -208,7 +208,7 @@ def test_binned_caps_grew_matches_jax(old, new):
 def test_tiled_key_space_guard():
     packed = torch.zeros((40_000, 10))
     with pytest.raises(ValueError, match="key space"):
-        T.composite_tiles_2d(packed, 8192, 8192)
+        T.composite_tiles_2d_packed(packed, 8192, 8192)
 
 
 def test_tiled_empty_tiles_background():
@@ -223,8 +223,8 @@ def test_tiled_empty_tiles_background():
     packed[:, 6:9] = 0.7
     packed[:, 9] = torch.linspace(1.0, 2.0, n)
     bg = torch.tensor([0.25, 0.5, 0.75])
-    for out in (T.composite_tiles_2d(packed, h, w, bg),
-                B.composite_tiles_binned(packed, h, w, bg)):
+    for out in (T.composite_tiles_2d_packed(packed, h, w, bg),
+                B.composite_tiles_binned_packed(packed, h, w, bg)):
         assert torch.allclose(out.rgb[40:, 200:], bg, atol=1e-6)
         assert float(out.alpha[40:, 200:].max()) == 0.0
         assert float(out.rgb[5:20, 5:20].mean()) > 0.4

@@ -87,8 +87,8 @@ def results(inputs):
             *map(jnp.asarray, arrs[:5]), jnp.asarray(bg))
         packed = packed_of(arrs).requires_grad_(True)
         b = torch.tensor(bg, requires_grad=True)
-        tfn = B.composite_tiles_binned if kind == "binned" else \
-            T.composite_tiles_2d
+        tfn = B.composite_tiles_binned_packed if kind == "binned" else \
+            T.composite_tiles_2d_packed
         out = tfn(packed, H, W, b, **kw)
         loss = (out.rgb * torch.tensor(cot["rgb"])).sum() + \
             (out.alpha * torch.tensor(cot["alpha"])).sum() + \
