@@ -72,8 +72,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and its pose come nearer the truth), then rendered; the FPS benchmark;
    the interpolated path with --backend auto; results.json (finite PSNR,
    SSIM and ATE, LPIPS null). Launch counts of KR, K1 and K2 must equal
-   the renders and refinement steps. 20 refinement steps under
-   torch.profiler (the card's busy share of a step). Then the refiner on
+   the renders and refinement steps (the refiner's steps are replays of
+   one captured CUDA graph). 20 refinement steps under torch.profiler
+   (the card's busy share of a replayed step). Then the refiner on
    the card against the CPU (10 steps on a small view, pose within 1e-5)
    and LPIPS with random weights on a 512x384 pair, card against CPU
    (relative 1e-4: full float32, no TF32). Prints ms per refinement
@@ -201,14 +202,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against the CPU (1e-5). Prints the phase's seconds beside the card's
    name and power limit. KR and K1-K6 must launch in the phase.
 
+13. The device-resident loops (JAX's make_train_scan / scan=True, the
+   refiner's and the aligner's fori_loop blocks) as replays of captured
+   CUDA graphs against their eager loops, in one call: cli.train with
+   scan=False on phase 4's scene for pallas, auto and phase 4's tiled and
+   binned strings (each loss curve within LOSS_RTOL of phase 4's captured
+   run of the same backend; no replay; KR and a forward kernel 200
+   times), then at the training shape on phase 4's model, for pallas,
+   tiled and binned: one captured step against one eager step from the
+   same state (parameters and first moments within twice the spread of
+   two eager steps by relative L2, plus 1e-6), 20 captured iterations and
+   20 eager ones under torch.profiler (cudaGraphLaunch calls must equal
+   the iterations replayed; kernel launch API calls per iteration, the
+   device's busy share, device launches by kernel), 50 of each timed
+   between two synchronisations, the peak memory; the refiner's ms a
+   step on phase 6's views (4 x 100 captured, 2 x 100 eager); the
+   aligner's ms an iteration on phase 7's oracle pairs (300, captured and
+   eager). Prints each number beside the card's name and power limit.
+   Phase 4 checks each captured run's replays (all iterations but the
+   first WARMUP of each graph).
+
 The last lines are one JSON object {"kernels": [...]} with seven entries
 (each with `launches`, from its own path's run in phase 4,
 `launches_phase8`, from phase 8's in-process runs: its subprocess stages
 count in their own processes, `launches_phase9`, from phase 9's
 densification check, `launches_phase10`, 0 for every kernel, and
 `launches_phase11`, phase 11's in both of its processes, and
-`launches_phase12`, phase 12's), the
-nvidia-smi line, and {"ok": true, "device": {...}}.
+`launches_phase12`, phase 12's, and `launches_phase13`, phase 13's), the
+nvidia-smi line, and {"ok": true, "device": {...}}. A launch is one on
+the device: a kernel launched by a replay of a captured CUDA graph counts
+once per replay (rasterize_pallas.Kernel.replayed); its wrapper, called
+while the graph was captured, launched nothing then.
 """
 
 from __future__ import annotations
@@ -926,16 +950,19 @@ def run_cli(main, argv):
 def train_run(scene: Path, out: Path, backend: str, log_every: int):
     """One 200-iteration training run through the CLI. -> (params,
     history, launches {KR, K1..K6}, seconds, the trainer's "backend auto"
-    lines, the overflow guard's demotion warnings)."""
+    lines, the overflow guard's demotion warnings, CUDA graph replays)."""
     from instantsplat_tpu_torch.cli import train as train_cli
+    from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop
 
+    replays = StepLoop.replays
     (params, history), text, seconds, launches, demotions = run_cli(
         train_cli.main, [
             "-s", scene, "-m", out, "--n_views", 3, "--iterations",
             TRAIN_ITERS, "--pp_optimizer", "--optim_pose", "--sh_degree", 3,
             "--log_every", log_every, "--backend", backend, "--quiet"])
     auto_lines = [ln for ln in text.splitlines() if "backend auto" in ln]
-    return params, history, launches, seconds, auto_lines, demotions
+    return (params, history, launches, seconds, auto_lines, demotions,
+            StepLoop.replays - replays)
 
 
 def check_run(tag, history, launches, seconds, demotions, log_every,
@@ -1328,9 +1355,9 @@ def stages_3_and_5(scene: Path, model: Path, dev, smi: str):
     params, _ = load_trained(model, it, device=dev)
     cam = test.cameras[0]
     pose0 = T.matrix_to_pose_np(test.poses_w2c[:1])[0]
-    make_pose_refiner(params, cam, num_iter=3)(pose0, cam.image)  # warm
     refine = make_pose_refiner(params, cam, num_iter=20)
-    with profiled("refine", "pallas", 20, top=8):
+    refine(pose0, cam.image)  # warm-up steps and the capture
+    with profiled("refine (captured: graph replays)", "pallas", 20, top=8):
         refine(pose0, cam.image)
     del params
 
@@ -1645,15 +1672,16 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
     if not (d_loss <= ALIGN_LOSS_RTOL and d_pose <= ALIGN_POSE_ATOL):
         fail("aligner: the card's result differs from the CPU's")
     events = {}
-    for n in (0, 10):
+    for n in (0, 10):  # the step launched op by op: its device events
         a = GlobalAligner(preds, device=dev)
         a.init_mst(focal_avg=True)
-        with profiled(f"align {n} iterations", "aligner", max(n, 1),
-                      top=4) as out:
+        with eager_loops(), profiled(f"align {n} iterations (eager)",
+                                     "aligner", max(n, 1), top=4) as out:
             a.align(niter=n)
         events[n] = out["events"]
     log(f"aligner: {(events[10] - events[0]) / 10:.1f} device events "
-        "(kernel launches and copies) per iteration")
+        "(kernel launches and copies) per iteration, each a launch of the "
+        "eager step and a node of the captured one")
     if not events[10] > events[0]:
         fail("aligner: torch.profiler saw no device work in its iterations")
     del al, card
@@ -3444,6 +3472,331 @@ def stage_structured(scene: Path, tmp: Path, dev, smi: str):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 13: the device-resident loops (captured CUDA graphs)
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """Every StepLoop steps as a Python loop on the card too: the same step
+    launched op by op (the eager comparison of the captured loops)."""
+    from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop
+
+    old = StepLoop.captured
+    StepLoop.captured = property(lambda self: False)
+    try:
+        yield
+    finally:
+        StepLoop.captured = old
+
+
+@contextlib.contextmanager
+def eager_training():
+    """cli.train with TrainerConfig(scan=False): train_step per iteration,
+    as the JAX trainer steps with scan off."""
+    import functools
+
+    from instantsplat_tpu_torch.cli import train as train_cli
+
+    old = train_cli.TrainerConfig
+    train_cli.TrainerConfig = functools.partial(old, scan=False)
+    try:
+        yield
+    finally:
+        train_cli.TrainerConfig = old
+
+
+def api_profile(fn, iters: int):
+    """fn() (`iters` iterations, ends synchronised) under torch.profiler.
+    -> dict(api: {runtime API name: calls}, kernels: {device kernel name:
+    launches}, busy_ms, wall_ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    api, kernels, busy = {}, {}, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+            busy += e.time_range.elapsed_us() / 1e3
+        elif e.name.startswith(("cuda", "cu")):
+            api[e.name] = api.get(e.name, 0) + 1
+    return dict(api=api, kernels=kernels, busy_ms=busy, wall_ms=wall_ms)
+
+
+def launch_calls(api) -> int:
+    """Kernel launch API calls among the runtime calls `api` recorded."""
+    return sum(n for name, n in api.items()
+               if name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                           "cuLaunchKernel", "cuLaunchKernelEx"))
+
+
+def synced_ms(fn, iters: int) -> float:
+    """ms per iteration of fn() (`iters` iterations), host clock between
+    two synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict, dev,
+                 smi: str):
+    """Phase 13: stage 2, the pose refiner and the aligner as replays of
+    captured CUDA graphs (the default) against their eager loops, in one
+    call, on phase 4's scene and its first dense run's model. `captured`:
+    phase 4's runs by backend (history, steady ms/iter, graph replays);
+    `explicit`: phase 4's tiled and binned strings. -> launches {KR,
+    K1..K6} of the phase."""
+    import torch
+
+    from instantsplat_tpu_torch.init.aligner import GlobalAligner
+    from instantsplat_tpu_torch.init.pairs import make_pair_indices
+    from instantsplat_tpu_torch.models.camera import stack_cameras
+    from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS
+    from instantsplat_tpu_torch.opt.gaussian_opt import (
+        GaussianOptimizer, OptimizationConfig)
+    from instantsplat_tpu_torch.data.scene import read_scene
+    from instantsplat_tpu_torch.pipelines.render_pipeline import (
+        make_pose_refiner)
+    from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
+    from instantsplat_tpu_torch.pipelines.trainer import (make_train_scan,
+                                                          train_step)
+    from instantsplat_tpu_torch.render import driver
+    from instantsplat_tpu_torch.utils import transforms as T
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    t_phase = time.time()
+    kernels = kernel_table()
+    phase = {name: 0 for name in kernels}
+
+    # ---- (a) cli.train eager (scan=False) against phase 4's captured runs
+    for kind, backend in (("dense", "pallas"), ("auto", "auto"),
+                          ("tiled", explicit["tiled"]),
+                          ("binned", explicit["binned"])):
+        hist_c, steady_c, replays_c = captured[kind]
+        with eager_training():
+            _, history, launches, secs, _, dem, replays = train_run(
+                scene, tmp / f"eager_{kind}", backend,
+                10 if kind == "auto" else 1)
+        for k in phase:
+            phase[k] += launches[k]
+        steady_e = check_run(f"{kind} eager (scan=False)", history,
+                             launches, secs, dem, 10 if kind == "auto"
+                             else 1, {it: m["loss"] for it, m in hist_c})
+        fwd = sum(launches[k] for k in ("K1", "K3", "K5"))
+        if replays or fwd != TRAIN_ITERS or launches["KR"] != TRAIN_ITERS:
+            fail(f"phase 13 {kind} eager: {replays} graph replays, "
+                 f"launches {launches}")
+        log(f"phase 13 {kind} [{smi}]: steady ms/iter captured "
+            f"{steady_c:.2f} ({replays_c} graph replays of {TRAIN_ITERS} "
+            f"iterations) against eager {steady_e:.2f}")
+
+    # ---- (b)-(d) the training step at the training shape ------------------
+    params, _ = load_trained(tmp / "dense", TRAIN_ITERS, device=dev)
+    p0, cams = initial_params(scene, dev)  # the trained Gaussians, and
+    params = params.replace(cam_poses=p0.cam_poses)  # poses to learn
+    del p0
+    opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
+                                               optim_pose=True),
+                            total_iterations=TRAIN_ITERS)
+    state = opt.init(params)
+    stacked = stack_cameras(cams)
+    bg = torch.zeros(3, device=dev)
+
+    def snapshot():
+        return ({f: getattr(params, f).clone() for f in PARAM_FIELDS},
+                {f: state.m[f].clone() for f in PARAM_FIELDS},
+                {f: state.v[f].clone() for f in PARAM_FIELDS}, state.step)
+
+    def restore(snap):
+        for f in PARAM_FIELDS:
+            getattr(params, f).copy_(snap[0][f])
+            state.m[f].copy_(snap[1][f])
+            state.v[f].copy_(snap[2][f])
+        state.step = snap[3]
+
+    s0 = snapshot()
+    n_prof, n_time = 20, 50
+    for kind, backend in (("dense", "pallas"), ("tiled", explicit["tiled"]),
+                          ("binned", explicit["binned"])):
+        driver._guard = driver._OverflowGuard()
+        restore(s0)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        block = make_train_scan(opt, stacked, bg, 0.2, backend, 256)
+        block(params, state, [0] * (WARMUP + 1), range(1, WARMUP + 2), 0)
+        # (b) one step from the same state, captured against eager: the
+        # parameters and the first moments (0.1 x the gradient) by
+        # relative L2 (Adam's first step moves a parameter by +-lr
+        # whatever its gradient's size, so a gradient at the rounding
+        # floor, which K2's atomics flip, moves it by 2 lr either way)
+        restore(s0)
+        block(params, state, [0], [1], 0)
+        one = snapshot()
+        eager = []
+        for _ in range(2):
+            restore(s0)
+            train_step(params, cams[0], opt, state, 1, 0, bg, 0.2, backend,
+                       256)
+            eager.append(snapshot())
+        def rel(a, b):  # relative L2; absolute where b is all zero
+            n = float(torch.linalg.norm(b.double()))
+            return float(torch.linalg.norm((a - b).double())) / (n or 1.0)
+
+        worst = 0.0
+        for part, label in ((0, ""), (1, "first moment of ")):
+            for f in PARAM_FIELDS:
+                spread = rel(eager[1][part][f], eager[0][part][f])
+                d = rel(one[part][f], eager[0][part][f])
+                tol = 2 * spread + 1e-6
+                worst = max(worst, d / tol)
+                if not d <= tol:
+                    fail(f"phase 13 {kind}: one captured step differs from "
+                         f"an eager one in {label}{f} by {d:.3e} relative "
+                         f"L2 (eager spread {spread:.3e})")
+        # (c) runtime calls, device launches and the busy share, 20 steps
+        views = [i % len(cams) for i in range(n_time)]
+        restore(s0)
+        before = StepLoop.replays
+        cap = api_profile(lambda: block(params, state, views[:n_prof],
+                                        range(2, n_prof + 2), 0), n_prof)
+        replayed = StepLoop.replays - before
+        graph_calls = cap["api"].get("cudaGraphLaunch", 0)
+        if replayed != n_prof or (cap["api"] and graph_calls != n_prof):
+            fail(f"phase 13 {kind}: {replayed} replays counted, "
+                 f"{graph_calls} cudaGraphLaunch calls seen, for {n_prof} "
+                 "iterations")
+        restore(s0)
+        table = to_cuda_rows(opt, range(2, n_prof + 2), state.step + 1, dev)
+
+        def eager_steps(n, first=2):
+            for j in range(n):
+                train_step(params, cams[views[j]], opt, state, first + j, 0,
+                           bg, 0.2, backend, 256, scalars=table[j % n_prof])
+
+        eag = api_profile(lambda: eager_steps(n_prof), n_prof)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # (d) ms/iter, synchronised, no profiler
+        restore(s0)
+        ms_c = synced_ms(lambda: block(params, state, views,
+                                       range(2, n_time + 2), 0), n_time)
+        restore(s0)
+        ms_e = synced_ms(lambda: eager_steps(n_time), n_time)
+        for k, kern in kernels.items():
+            phase[k] += kern.launches
+        busy = {t: p["busy_ms"] / n_prof for t, p in (("captured", cap),
+                                                      ("eager", eag))}
+        share = {t: 100 * p["busy_ms"] / p["wall_ms"] for t, p in (
+            ("captured", cap), ("eager", eag))}
+        calls = {t: launch_calls(p["api"]) / n_prof for t, p in (
+            ("captured", cap), ("eager", eag))}
+        log(f"phase 13 {kind} step ({backend}) [{smi}]: ms/iter "
+            f"synchronised over {n_time}: captured {ms_c:.3f}, eager "
+            f"{ms_e:.3f} ({ms_e / ms_c:.2f}x); kernel launch API calls per "
+            f"iteration captured {calls['captured']:.1f}, eager "
+            f"{calls['eager']:.1f}; cudaGraphLaunch {graph_calls} for "
+            f"{n_prof} iterations; device busy per iteration captured "
+            f"{busy['captured']:.3f} ms = {share['captured']:.1f}% of the "
+            f"wall, eager {busy['eager']:.3f} ms = {share['eager']:.1f}% "
+            f"(profiler on); peak memory {peak_gb:.2f} GB; one captured "
+            f"step against eager: worst {worst:.3f} of its limit")
+        for tag, prof in (("captured", cap), ("eager", eag)):
+            log(f"phase 13 {kind} {tag}: runtime API calls per iteration: "
+                + ", ".join(f"{name} {n / n_prof:.1f}" for name, n in sorted(
+                    prof["api"].items(), key=lambda kv: -kv[1])[:6]))
+        for name, n in sorted(cap["kernels"].items(), key=lambda kv: -kv[1]):
+            if any(k in name for k in ("k1_", "k2_", "lists_")):
+                log(f"phase 13 {kind} captured: device launches of "
+                    f"{name[:60]}: {n} in {n_prof} iterations")
+        if not cap["kernels"]:
+            log(f"phase 13 {kind}: torch.profiler recorded no device "
+                "events inside the graph replays (busy share not measured)")
+    restore(s0)
+    del state
+
+    # ---- (e) the pose refiner on phase 6's test views ----------------------
+    driver._guard = driver._OverflowGuard()
+    for k in kernels.values():
+        k.launches = 0
+    test = read_scene(scene, 3, split="test", device=dev)
+    n_ref = 100
+    refine = make_pose_refiner(params, test.cameras[0], num_iter=n_ref)
+    pose0 = T.matrix_to_pose_np(test.poses_w2c)
+    refine(pose0[0], test.cameras[0].image)  # warm-up and capture
+    before = StepLoop.replays
+
+    def refine_views(fn, views):
+        for i in views:
+            c = test.cameras[i]
+            fn(pose0[i], c.image, intr=(c.fx, c.fy, c.cx, c.cy))
+
+    ms_ref_c = synced_ms(lambda: refine_views(refine, range(4)), 4 * n_ref)
+    if StepLoop.replays - before != 4 * n_ref:
+        fail(f"phase 13 refiner: {StepLoop.replays - before} replays for "
+             f"{4 * n_ref} steps")
+    with eager_loops():
+        eager_refine = make_pose_refiner(params, test.cameras[0],
+                                         num_iter=n_ref)
+        ms_ref_e = synced_ms(lambda: refine_views(eager_refine, range(2)),
+                             2 * n_ref)
+    for k, kern in kernels.items():
+        phase[k] += kern.launches
+    log(f"phase 13 refiner [{smi}]: ms per refinement step on phase 6's "
+        f"views: captured {ms_ref_c:.3f} (4 views x {n_ref}), eager "
+        f"{ms_ref_e:.3f} (2 views x {n_ref}), {ms_ref_e / ms_ref_c:.2f}x")
+    del params
+
+    # ---- (f) the aligner on phase 7's oracle pairs -------------------------
+    preds = oracle_pointmap_fn(TRAIN_FRAMES, 0.9 * W)(
+        None, make_pair_indices(3, "complete", symmetrize=True))
+    align_ms = {}
+    for tag in ("captured", "eager"):
+        ctx = eager_loops() if tag == "eager" else contextlib.nullcontext()
+        with ctx:
+            secs = {}
+            for n in (0, ALIGN_ITERS):
+                a = GlobalAligner(preds, device=dev)
+                a.init_mst(focal_avg=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = a.align(niter=n)
+                secs[n] = time.perf_counter() - t0
+                if not math.isfinite(loss):
+                    fail(f"phase 13 aligner {tag}: loss {loss}")
+            align_ms[tag] = (secs[ALIGN_ITERS] - secs[0]) * 1e3 / ALIGN_ITERS
+    log(f"phase 13 aligner [{smi}]: {ALIGN_ITERS} iterations on 6 oracle "
+        f"pairs at {W}x{H}: captured {align_ms['captured']:.3f} ms per "
+        f"iteration, eager {align_ms['eager']:.3f} "
+        f"({align_ms['eager'] / align_ms['captured']:.2f}x; the first "
+        f"{WARMUP} steps and the capture included)")
+    log(f"phase 13 [{smi}]: {time.time() - t_phase:.1f} s; launches {phase}")
+    if not (phase["KR"] and phase["K1"] and phase["K2"] and phase["K3"]
+            and phase["K5"]):
+        fail(f"phase 13: a kernel of the captured paths never launched "
+             f"({phase})")
+    return phase
+
+
+def to_cuda_rows(opt, iterations, first_step: int, dev):
+    """opt.step_scalars(iterations, first_step) on the card."""
+    from instantsplat_tpu_torch.utils.cuda_graphs import to_device
+
+    return to_device(opt.step_scalars(list(iterations), first_step), dev)
+
+
 def main():
     import numpy as np
     import torch
@@ -3472,6 +3825,7 @@ def main():
     dev = torch.device("cuda")
 
     from instantsplat_tpu_torch.ops import cuda_build
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP
 
     # ---- phase 2: build, one nvcc per source, all started together -------
     t0 = time.time()
@@ -3520,12 +3874,18 @@ def main():
         write_scene(scene)
         log(f"scene: {N_POINTS} points, 3 views {W}x{H}, PNG images")
         torch.cuda.reset_peak_memory_stats()
-        params, history, launches, secs, _, dem = train_run(
+        params, history, launches, secs, _, dem, replays = train_run(
             scene, Path(tmp) / "dense", "pallas", 1)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         steady = {"dense": check_run("dense (--backend pallas)", history,
                                      launches, secs, dem, 1)}
-        log(f"train dense: peak memory {peak_gb:.2f} GB")
+        # phase 13's comparison: each backend's captured run
+        captured = {"dense": (history, steady["dense"], replays)}
+        log(f"train dense: peak memory {peak_gb:.2f} GB; {replays} CUDA "
+            f"graph replays (the first {WARMUP} iterations eager)")
+        if replays != TRAIN_ITERS - WARMUP:
+            fail(f"dense run: {replays} graph replays, expected "
+                 f"{TRAIN_ITERS - WARMUP}")
         out = Path(tmp) / "dense"
         for rel in ("point_cloud/iteration_200/point_cloud.ply",
                     "pose/ours_200/pose_optimized.npy", "cameras.json",
@@ -3550,18 +3910,22 @@ def main():
         cam = cams[0]
         del p0
 
-        _, history, launches, secs, _, dem = train_run(
+        _, history, launches, secs, _, dem, _ = train_run(
             scene, Path(tmp) / "dense2", "pallas", 1)
         check_run("dense, second run", history, launches, secs, dem, 1,
                   dense_losses)
 
         # auto: the probe times 10-iteration blocks, as with log_every 100
-        _, history, launches, secs, auto_lines, dem = train_run(
+        _, history, launches, secs, auto_lines, dem, replays = train_run(
             scene, Path(tmp) / "auto", "auto", 10)
         for ln in auto_lines:
             log(f"train auto: trainer said: {ln.strip()}")
         steady["auto"] = check_run("auto", history, launches, secs, dem, 10,
                                    dense_losses)
+        captured["auto"] = (history, steady["auto"], replays)
+        log(f"train auto: {replays} CUDA graph replays")
+        if not TRAIN_ITERS - 4 * WARMUP <= replays < TRAIN_ITERS:
+            fail(f"auto run: {replays} graph replays")
         fwd = launches["K1"] + launches["K3"] + launches["K5"]
         bwd = launches["K2"] + launches["K4"] + launches["K6"]
         if (fwd != TRAIN_ITERS or bwd != TRAIN_ITERS
@@ -3581,12 +3945,16 @@ def main():
             "binned": (f"pallas-binned:{max(bcf, fbcf) + 1}:"
                        f"{max(bdl, fbdl) + 4}", ("K3", "K4"))}
         for kind, (backend, (kf, kb)) in explicit.items():
-            _, history, launches, secs, _, dem = train_run(
+            _, history, launches, secs, _, dem, replays = train_run(
                 scene, Path(tmp) / kind, backend, 1)
             steady[kind] = check_run(f"{kind} ({backend})", history,
                                      launches, secs, dem, 1, dense_losses)
+            captured[kind] = (history, steady[kind], replays)
             if dem:
                 fail(f"{kind} run: the overflow guard demoted {backend}")
+            if replays != TRAIN_ITERS - WARMUP:
+                fail(f"{kind} run: {replays} graph replays, expected "
+                     f"{TRAIN_ITERS - WARMUP}")
             if any(launches[k] != TRAIN_ITERS for k in ("KR", kf, kb)):
                 fail(f"{kind} run: KR/{kf}/{kb} launched {launches['KR']}/"
                      f"{launches[kf]}/{launches[kb]} times, expected "
@@ -3629,12 +3997,19 @@ def main():
         # ---- phase 12: the structured entry points -----------------------
         log(f"{time.time() - t_start:.0f} s since the start")
         phase12 = stage_structured(scene, Path(tmp), dev, smi)
+
+        # ---- phase 13: the device-resident loops -------------------------
+        log(f"{time.time() - t_start:.0f} s since the start")
+        phase13 = stage_graphs(scene, Path(tmp), captured, {
+            kind: backend for kind, (backend, _) in explicit.items()}, dev,
+            smi)
         for row in rows:
             row["launches_phase8"] = phase8[row["name"].split()[0]]
             row["launches_phase9"] = phase9[row["name"].split()[0]]
             row["launches_phase10"] = phase10[row["name"].split()[0]]
             row["launches_phase11"] = phase11[row["name"].split()[0]]
             row["launches_phase12"] = phase12[row["name"].split()[0]]
+            row["launches_phase13"] = phase13[row["name"].split()[0]]
         log(f"{time.time() - t_start:.0f} s since the start")
 
     print(json.dumps({"kernels": rows}), flush=True)

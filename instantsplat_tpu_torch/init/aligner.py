@@ -23,16 +23,21 @@ loss as the JAX package:
   linear) rate from lr to 1e-6, 300 iterations (base_opt.py:326-366),
   written out by hand as JAX's loop is, on the aligner's device.
 
-The loop is one plain PyTorch loop on stacked [E, H*W] tensors: a few
-hundred small launches an iteration and no host read until the end. The
-JAX package's ~60 s block dispatch is a TPU workaround, not ported. With a
-mesh, each rank holds a contiguous share of the edges (when the rank
+The loop's step works on stacked [E, H*W] tensors and reads its rate and
+bias corrections from a device table by a device step counter, so it
+runs as JAX's fori_loop blocks do, on the device: on a card one step is
+captured into a CUDA graph and replayed for the 300 iterations
+(utils/cuda_graphs.StepLoop), on the CPU it runs in a Python loop; no
+host read until the end. The JAX package's ~60 s block dispatch is a TPU
+workaround, not ported. With a mesh, each rank holds a contiguous share
+of the edges (when the rank
 count divides E) or of the pixels (when it divides H*W), the parameters
 replicated (rank 0's start broadcast); each rank's loss is its share of
 the global sum, still divided by the global counts, and the gradients
 are summed over the ranks before every identical Adam step. On the card
 the backward of the per-edge gathers `world[ei]` adds with atomics, so
-the card's result is tolerance-equal to the CPU's, not bit-equal.
+the card's result is tolerance-equal to the CPU's, not bit-equal. With a
+mesh the steps run eagerly (their gradient all-reduce is not captured).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from instantsplat_tpu_torch import resolve_device
 from instantsplat_tpu_torch.init import geometry as G
 from instantsplat_tpu_torch.init import pnp
 from instantsplat_tpu_torch.utils import transforms as T
+from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, to_device
 from instantsplat_tpu_torch.utils.transforms import (qvec_to_rotmat,
                                                      rotmat_to_qvec)
 
@@ -473,18 +479,25 @@ class GlobalAligner:
         beta1, beta2, eps = 0.9, 0.9, 1e-8
         m = {k: torch.zeros_like(p) for k, p in params.items()}
         v = {k: torch.zeros_like(p) for k, p in params.items()}
+        # the rate and the bias corrections of every iteration in float32,
+        # as JAX's loop computes them on the device: one table, indexed by
+        # a device step counter
         f32 = np.float32
+        table = np.zeros((niter, 3), f32)
         for it in range(niter):
-            # the rate and the bias corrections in float32, as JAX's loop
-            # computes them on the device
             t = f32(it) / f32(niter)
             if schedule == "cosine":
-                cur_lr = f32(lr_min) + (f32(lr) - f32(lr_min)) * (
+                table[it, 0] = f32(lr_min) + (f32(lr) - f32(lr_min)) * (
                     f32(1) + np.cos(t * f32(math.pi))) / f32(2)
             else:
-                cur_lr = f32(lr) + (f32(lr_min) - f32(lr)) * t
-            bc1 = f32(1) - f32(beta1) ** f32(it + 1)
-            bc2 = f32(1) - f32(beta2) ** f32(it + 1)
+                table[it, 0] = f32(lr) + (f32(lr_min) - f32(lr)) * t
+            table[it, 1] = f32(1) - f32(beta1) ** f32(it + 1)
+            table[it, 2] = f32(1) - f32(beta2) ** f32(it + 1)
+        table = to_device(table, dev)
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def step():
+            cur_lr, bc1, bc2 = table.index_select(0, counter)[0]
             grads = torch.autograd.grad(self._loss(params, buffers),
                                         list(params.values()))
             if groups is not None:
@@ -494,8 +507,13 @@ class GlobalAligner:
                     m[k].mul_(beta1).add_(g, alpha=1 - beta1)
                     v[k].mul_(beta2).addcmul_(g, g, value=1 - beta2)
                     if trainable[k]:
-                        p.sub_(float(cur_lr) * (m[k] / float(bc1)) / (
-                            torch.sqrt(v[k] / float(bc2)) + eps))
+                        p.sub_(cur_lr * (m[k] / bc1) / (
+                            torch.sqrt(v[k] / bc2) + eps))
+                counter.add_(1)
+
+        # JAX's fori_loop blocks: on a card, replays of one captured step;
+        # with a mesh the all-reduce keeps the steps eager
+        StepLoop(step, dev, "align", capture=mesh is None).run(niter)
         with torch.no_grad():
             final_loss = self._loss(params, buffers)
             if groups is not None:

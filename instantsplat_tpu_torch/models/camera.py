@@ -118,3 +118,19 @@ def stack_cameras(cams: list[Camera]) -> Camera:
         uid=torch.tensor([int(c.uid) for c in cams], dtype=torch.int64,
                          device=c0.pose.device),
     )
+
+
+def gather_camera(stacked: Camera, idx: torch.Tensor) -> Camera:
+    """View `idx` ([1] int64 device tensor) of `stack_cameras`' output as
+    a Camera (uid a [1] tensor): device gathers only, so a captured graph
+    picks the view its replay is given (JAX gathers c[view_idx] inside its
+    scan)."""
+
+    def pick(t):
+        return t.index_select(0, idx)[0]
+
+    return dataclasses.replace(
+        stacked, pose=pick(stacked.pose), fx=pick(stacked.fx),
+        fy=pick(stacked.fy), cx=pick(stacked.cx), cy=pick(stacked.cy),
+        image=None if stacked.image is None else pick(stacked.image),
+        uid=stacked.uid.index_select(0, idx))

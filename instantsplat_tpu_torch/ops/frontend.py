@@ -39,8 +39,9 @@ class FrontendCols(NamedTuple):
 
 def _max(x: torch.Tensor, floor: float) -> torch.Tensor:
     """max(x, floor) with JAX's tie gradient (half to each side), where
-    torch.clamp would pass the whole gradient."""
-    return torch.maximum(x, x.new_tensor(floor))
+    torch.clamp would pass the whole gradient. The floor is filled on
+    the device (no host copy, so the front end can be captured)."""
+    return torch.maximum(x, x.new_full((), floor))
 
 
 def _sh_colors(deg: int, feat_t, x, y, z):

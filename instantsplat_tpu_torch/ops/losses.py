@@ -52,4 +52,5 @@ def masked_photometric_loss(pred: torch.Tensor, gt: torch.Tensor,
 def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Per-image PSNR over all pixels (images in [0, 1])."""
     mse = torch.mean((pred - gt) ** 2)
-    return 20.0 * torch.log10(1.0 / torch.sqrt(torch.maximum(mse, mse.new_tensor(1e-12))))
+    return 20.0 * torch.log10(1.0 / torch.sqrt(torch.maximum(
+        mse, mse.new_full((), 1e-12))))

@@ -69,7 +69,7 @@ def _chunk_step(rgbd, logT, done, lc, blk, px, py, gidx):
              - blk[None, :, 3] * dx * dy)
     # minimum, not clamp: JAX's tie gradient (half to each side)
     alpha = torch.minimum(torch.exp(power + blk[None, :, 5]),
-                          blk.new_tensor(ALPHA_MAX))
+                          blk.new_full((), ALPHA_MAX))
     alpha = torch.where((power > 0) | (alpha < ALPHA_EPS),
                         torch.zeros_like(alpha), alpha)
     l = torch.log1p(-alpha)  # 0 where alpha == 0

@@ -57,23 +57,39 @@ MAX_TILES = _DEAD - 1  # tiles per image side that an int16 bound can index
 
 class Kernel:
     """One CUDA entry point of csrc/<source>: its ctypes signature and a
-    launch count."""
+    launch count.
+
+    A call made while the current stream is being captured into a CUDA
+    graph (utils/cuda_graphs.py) launches nothing: it is counted in
+    `captured`, and every replay of that graph adds its launches to
+    `launches` (`replayed`), so `launches` counts what ran on the device."""
+
+    registry: list = []  # every Kernel, in the order defined
 
     def __init__(self, name: str, argtypes, source: str = "rasterize.cu"):
         self.name = name
         self.argtypes = argtypes
         self.source = source
         self.launches = 0  # incremented once per kernel launch
+        self.captured = 0  # calls recorded into the graph being captured
+        Kernel.registry.append(self)
 
     def __call__(self, *args):
         fn = getattr(cuda_build.load_library(self.source), self.name)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         err = fn(*args)
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed "
                                f"(cudaError {err})")
+
+    def replayed(self, n: int):
+        """`n` launches of this kernel by replays of a captured graph."""
+        self.launches += n
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

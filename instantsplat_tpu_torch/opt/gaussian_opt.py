@@ -18,7 +18,10 @@ not. Kept from the reference:
 
 `step` updates parameters and moments IN PLACE (the JAX version returns new
 pytrees); the learning rates and bias corrections are computed in float32,
-as JAX computes them, so both packages take the same steps.
+as JAX computes them, so both packages take the same steps. They reach the
+update as a device table (`step_scalars`, one row per step), never as host
+floats, so a block of steps can be captured in a CUDA graph and replayed
+(pipelines/trainer.py::make_train_scan).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
+from instantsplat_tpu_torch.utils.cuda_graphs import to_device
 from instantsplat_tpu_torch.utils.schedules import expon_lr
 
 
@@ -122,35 +126,66 @@ class GaussianOptimizer:
                                    device=dev).reshape(-1, 1)
         return AdamState(m=m, v=v, step=0, per_point_lr=ppl)
 
-    @torch.no_grad()
-    def step(self, params: GaussianModel, grads: dict, state: AdamState,
-             iteration: int) -> None:
-        """One Adam step, in place on `params` and `state`. grads: field
-        name -> gradient tensor (same shape as the parameter)."""
+    def step_scalars(self, iterations, first_step: int) -> torch.Tensor:
+        """[k, len(PARAM_FIELDS) + 1] float32 on the host: for the Adam
+        steps first_step, first_step + 1, ... taken at `iterations`, each
+        group's step factor (lr * sqrt(bc2) / bc1 with pp_optimizer, else
+        lr / bc1) and sqrt(bc2), computed in float32 as JAX computes them.
+        `apply_step` reads one row; a block of steps copies its table to
+        the device once, so no scalar is a host value frozen into a
+        captured graph."""
         cfg = self.cfg
-        state.step += 1
-        # scalar factors in float32 on the host (as JAX computes them), then
-        # applied as Python floats holding those float32 values
         f32 = dict(dtype=torch.float32)
-        t = torch.tensor(float(state.step), **f32)
-        bc1 = 1.0 - torch.tensor(cfg.beta1, **f32) ** t
-        bc2 = 1.0 - torch.tensor(cfg.beta2, **f32) ** t
-        lrs = self.group_lrs(iteration)
-        for name in PARAM_FIELDS:
+        beta1 = torch.tensor(cfg.beta1, **f32)
+        beta2 = torch.tensor(cfg.beta2, **f32)
+        rows = []
+        for j, iteration in enumerate(iterations):
+            t = torch.tensor(float(first_step + j), **f32)
+            bc1 = 1.0 - beta1 ** t
+            sq_bc2 = torch.sqrt(1.0 - beta2 ** t)
+            lrs = self.group_lrs(int(iteration))
+            factors = [torch.as_tensor(lrs[name], **f32) * sq_bc2 / bc1
+                       if cfg.pp_optimizer else
+                       torch.as_tensor(lrs[name], **f32) / bc1
+                       for name in PARAM_FIELDS]
+            rows.append(torch.stack(factors + [sq_bc2]))
+        return torch.stack(rows)
+
+    def step(self, params: GaussianModel, grads: dict, state: AdamState,
+             iteration: int, *,
+             scalars: Optional[torch.Tensor] = None) -> None:
+        """One Adam step, in place on `params` and `state`. grads: field
+        name -> gradient tensor (same shape as the parameter). scalars:
+        this step's row of `step_scalars` on the parameters' device (made
+        here when None)."""
+        state.step += 1
+        if scalars is None:
+            scalars = to_device(self.step_scalars([iteration], state.step),
+                                params.xyz.device)[0]
+        self.apply_step(params, grads, state, scalars)
+
+    @torch.no_grad()
+    def apply_step(self, params: GaussianModel, grads: dict,
+                   state: AdamState, scalars: torch.Tensor) -> None:
+        """The update of `step` from its row of `step_scalars`, a device
+        tensor: device work only (no host read, no host scalar), so it can
+        be captured. Leaves state.step to the caller."""
+        cfg = self.cfg
+        sq_bc2 = scalars[-1]
+        for i, name in enumerate(PARAM_FIELDS):
             p = getattr(params, name)
             g = grads[name]
             m_old, v_old = state.m[name], state.v[name]
             m = cfg.beta1 * m_old + (1 - cfg.beta1) * g
             v = cfg.beta2 * v_old + (1 - cfg.beta2) * g * g
-            lr = torch.as_tensor(lrs[name], **f32)
+            factor = scalars[i]
             if cfg.pp_optimizer:
                 # whole-tensor zero-grad skip (per_point_adam.py:65-73)
                 nonzero = torch.sum(g * g) > 0
                 m = torch.where(nonzero, m, m_old)
                 v = torch.where(nonzero, v, v_old)
                 denom = torch.sqrt(v) + cfg.eps
-                step_size = (lr * torch.sqrt(bc2) / bc1).item()
-                upd = step_size * m / denom
+                upd = factor * m / denom
                 if name == "xyz" and state.per_point_lr is not None:
                     # the reference's self-adjusting per-point LR is
                     # discarded every step (never written back): fixed here
@@ -158,7 +193,7 @@ class GaussianOptimizer:
                 p.sub_(upd)
             else:
                 # torch.optim.Adam formulation: sqrt(v)/sqrt(bc2) + eps
-                denom = torch.sqrt(v) / torch.sqrt(bc2).item() + cfg.eps
-                p.sub_((lr / bc1).item() * m / denom)
+                denom = torch.sqrt(v) / sq_bc2 + cfg.eps
+                p.sub_(factor * m / denom)
             m_old.copy_(m)
             v_old.copy_(v)

@@ -20,7 +20,9 @@ With a mesh (`cli.render --n_devices`), `refine_poses_sharded` splits the
 test views over the ranks, each running `make_pose_refiner` on its share,
 and gathers the refined poses in view order; rank 0 renders and writes.
 Without one every view runs `make_pose_refiner` in turn (JAX batches them
-with lax.map on one device, the same per-view maths). Not ported: the TPU
+with lax.map on one device, the same per-view maths). The refiner's steps
+run as JAX's fori_loop does, on the device: on a card, replays of one
+captured CUDA graph (utils/cuda_graphs.StepLoop). Not ported: the TPU
 dispatch governor (bounded fori_loop blocks under a runtime deadline; a
 TPU workaround that leaves the maths unchanged).
 """
@@ -43,8 +45,12 @@ from instantsplat_tpu_torch.models.camera import Camera
 from instantsplat_tpu_torch.ops.losses import masked_l1_loss
 from instantsplat_tpu_torch.parallel import runtime
 from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
-from instantsplat_tpu_torch.pipelines.trainer import _binned_candidate, _sync
+from instantsplat_tpu_torch.pipelines.trainer import (_binned_candidate,
+                                                      _is_capacity_backend,
+                                                      _sync)
+from instantsplat_tpu_torch.render import driver
 from instantsplat_tpu_torch.render.driver import render
+from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop
 from instantsplat_tpu_torch.utils import camera_paths
 from instantsplat_tpu_torch.utils import transforms as T
 
@@ -127,6 +133,14 @@ def make_pose_refiner(params, camera: Camera, backend="pallas",
     `intr` = (fx, fy, cx, cy) replaces the camera's intrinsics, so one
     refiner serves every view of a shape. The Gaussians get no gradient;
     the pose is the only leaf.
+
+    As JAX's fori_loop, the steps run on the device: the step works on
+    tensors made once (pose, moments, latch, gt, intr, a step counter
+    indexing the rate and bias-correction tables), so on a card one step
+    is captured into a CUDA graph and replayed num_iter times a view
+    (utils/cuda_graphs.StepLoop; the first view's first steps run
+    eagerly), and best_pose / best_loss are read once a view. On the CPU
+    the same step runs in a Python loop.
     """
     dev = params.xyz.device
     if bg is None:
@@ -139,32 +153,57 @@ def make_pose_refiner(params, camera: Camera, backend="pallas",
                      + [lr_min + (lr_t - lr_min) * cos] * 3, dim=1)
     bc1 = 1 - torch.pow(torch.tensor(beta1, device=dev), t + 1.0)
     bc2 = 1 - torch.pow(torch.tensor(beta2, device=dev), t + 1.0)
+    # the loop's tensors: what a captured step reads and writes
+    pose, m, v, best_pose = (torch.zeros(7, device=dev) for _ in range(4))
+    best_loss = torch.zeros((), device=dev)
+    gt_s = torch.zeros((camera.height, camera.width, 3), device=dev)
+    intr_s = torch.zeros(4, device=dev)
+    k = torch.zeros(1, dtype=torch.int64, device=dev)
+    cam = dataclasses.replace(camera, fx=intr_s[0], fy=intr_s[1],
+                              cx=intr_s[2], cy=intr_s[3])
+
+    def step():
+        pose.requires_grad_(True)
+        out = render(params, cam, pose=pose, bg=bg, backend=backend)
+        loss = masked_l1_loss(out.render, gt_s, out.render.detach() > 0.0)
+        (g,) = torch.autograd.grad(loss, [pose])
+        pose.requires_grad_(False)
+        with torch.no_grad():
+            loss = loss.detach()
+            g = g + weight_decay * pose
+            m.copy_(beta1 * m + (1 - beta1) * g)
+            v.copy_(beta2 * v + (1 - beta2) * g * g)
+            lr_k = lr.index_select(0, k)[0]
+            upd = lr_k * (m / bc1.index_select(0, k)) / (
+                torch.sqrt(v / bc2.index_select(0, k)) + eps)
+            best_pose.copy_(torch.where(loss < best_loss, pose, best_pose))
+            best_loss.copy_(torch.minimum(loss, best_loss))
+            pose.sub_(upd)
+            k.add_(1)
+
+    loops: dict = {}  # the demoted capacity signatures it runs under -> loop
+    pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
 
     def refine(pose0, gt, intr=None):
-        cam = camera if intr is None else dataclasses.replace(
-            camera, fx=intr[0], fy=intr[1], cx=intr[2], cy=intr[3])
-        pose = torch.as_tensor(pose0, dtype=torch.float32,
-                               device=dev).detach().clone()
-        m = torch.zeros_like(pose)
-        v = torch.zeros_like(pose)
-        best_pose = pose.clone()
-        best_loss = torch.tensor(math.inf, device=dev)
-        for k in range(num_iter):
-            pose.requires_grad_(True)
-            out = render(params, cam, pose=pose, bg=bg, backend=backend)
-            loss = masked_l1_loss(out.render, gt, out.render.detach() > 0.0)
-            (g,) = torch.autograd.grad(loss, [pose])
-            with torch.no_grad():
-                pose = pose.detach()
-                loss = loss.detach()
-                g = g + weight_decay * pose
-                m = beta1 * m + (1 - beta1) * g
-                v = beta2 * v + (1 - beta2) * g * g
-                upd = lr[k] * (m / bc1[k]) / (torch.sqrt(v / bc2[k]) + eps)
-                best_pose = torch.where(loss < best_loss, pose, best_pose)
-                best_loss = torch.minimum(loss, best_loss)
-                pose = pose - upd
-        return best_pose, best_loss
+        key = _is_capacity_backend(backend) and frozenset(
+            driver._guard.demoted)
+        if key not in loops:
+            loops.clear()
+            loops[key] = StepLoop(step, dev, "make_pose_refiner", pool)
+        if intr is None:
+            intr = (camera.fx, camera.fy, camera.cx, camera.cy)
+        with torch.no_grad():
+            pose.copy_(torch.as_tensor(pose0, dtype=torch.float32))
+            best_pose.copy_(pose)
+            m.zero_()
+            v.zero_()
+            best_loss.fill_(math.inf)
+            gt_s.copy_(torch.as_tensor(gt, dtype=torch.float32))
+            intr_s.copy_(torch.stack([torch.as_tensor(
+                x, dtype=torch.float32, device=dev) for x in intr]))
+            k.zero_()
+        loops[key].run(num_iter)
+        return best_pose.clone(), best_loss.clone()
 
     return refine
 

@@ -11,14 +11,25 @@ black or white background, the `log_every` history, resume from an
 (opt_state, first_iter) pair, mixed-aspect scenes (each view rendered at
 its own shape), and backend="auto": the timed probe of the dense kernels
 against a capacity backend sized for the scene, and its periodic re-probe
-(see train_joint). Left out as TPU workarounds: lax.scan blocks (here a
-"block" is just a run of iterations on one backend) and the dispatch
-governor that kept each scan under a runtime deadline. With a mesh
-(`TrainerConfig.n_devices`, or `mesh=`), every render is sharded over the
-ranks (parallel/sharding.py); rank 0 draws the view order and broadcasts
-it, and `auto` resolves to the dense kernels, as in JAX. With a `viewer`
-(render/network_gui.NetworkGUI), every iteration first answers at most
-one pending viewer request (_serve_viewer).
+(see train_joint).
+
+The iterations run in blocks, as JAX's `make_train_scan` runs them
+(`TrainerConfig.scan`, the default): on a card each block is replays of
+one captured CUDA graph of the step (utils/cuda_graphs.StepLoop), which
+gathers its view by a device index and reads its learning rates and bias
+corrections from a device table, so the host makes one graph launch per
+iteration and reads the metrics at the block's end; on the CPU the same
+step runs in a Python loop. The eager loop (`train_step` per iteration)
+runs where JAX's does: with a viewer, on mixed-shape scenes, with
+scan=False; and with a mesh, whose collectives are not captured. Left out
+as a TPU workaround: the dispatch governor that bounded each scanned block
+under the TPU runtime's execution deadline (JAX's dispatch_budget_s,
+_fit_block). With a mesh (`TrainerConfig.n_devices`, or `mesh=`), every
+render is sharded over the ranks (parallel/sharding.py); rank 0 draws the
+view order and broadcasts it, and `auto` resolves to the dense kernels,
+as in JAX. With a `viewer` (render/network_gui.NetworkGUI), every
+iteration first answers at most one pending viewer request
+(_serve_viewer).
 """
 
 from __future__ import annotations
@@ -26,12 +37,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from types import SimpleNamespace
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from instantsplat_tpu_torch.models.camera import Camera
+from instantsplat_tpu_torch.models.camera import (Camera, gather_camera,
+                                                 stack_cameras)
 from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
 from instantsplat_tpu_torch.opt.gaussian_opt import (
     AdamState,
@@ -40,11 +53,13 @@ from instantsplat_tpu_torch.opt.gaussian_opt import (
 )
 from instantsplat_tpu_torch.ops import rasterize_pallas_tiled
 from instantsplat_tpu_torch.ops.losses import photometric_loss, psnr
+from instantsplat_tpu_torch.render import driver
 from instantsplat_tpu_torch.render.driver import (
     binned_view_requirements,
     render,
     tiled_view_requirements,
 )
+from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, to_device
 
 _log = logging.getLogger(__name__)
 
@@ -58,6 +73,11 @@ class TrainerConfig:
     sh_up_interval: int = 1000  # reference train.py:148-149
     seed: int = 0
     log_every: int = 100
+    # run log_every iterations as one block (make_train_scan): on a card,
+    # replays of one captured CUDA graph, the metrics read at the block's
+    # end. Off with a live viewer (per-iteration polling), on mixed-shape
+    # scenes and with a mesh, which step eagerly
+    scan: bool = True
     # renders sharded over an n_devices 1-D mesh (parallel/sharding.py):
     # 0/None/1 = one device; -1 = every rank of the group. shard_axis:
     # 'pixels' (row blocks per rank) or 'gaussians' (depth slices)
@@ -83,28 +103,121 @@ def _render_rgb(p, cam, pose, bg, active_sh, chunk, backend, mesh,
         chunk=chunk, backend=backend)[0]
 
 
-def train_step(params: GaussianModel, cam: Camera, optimizer, opt_state,
-               iteration: int, active_sh: int, bg, lambda_dssim: float,
-               backend: str, chunk: int, mesh=None,
-               shard_axis: str = "pixels") -> dict:
-    """render -> loss -> backward -> Adam, in place. Returns the metrics
-    as 0-dim tensors (reading them synchronises with the device)."""
+def _step_metrics(params: GaussianModel, cam: Camera, pose, bg,
+                  active_sh: int, lambda_dssim: float, backend: str,
+                  chunk: int, mesh, shard_axis: str):
+    """render -> loss -> gradients of every parameter field. -> (grads by
+    field, metrics as 0-dim tensors)."""
     tensors = params.tensors()
     for t in tensors:
         t.requires_grad_(True)
-    rgb = _render_rgb(params, cam, params.get_pose(cam.uid), bg, active_sh,
-                      chunk, backend, mesh, shard_axis)
+    rgb = _render_rgb(params, cam, pose(), bg, active_sh, chunk, backend,
+                      mesh, shard_axis)
     loss, aux = photometric_loss(rgb, cam.image, lambda_dssim)
     grads = torch.autograd.grad(loss, tensors, allow_unused=True)
     for t in tensors:
         t.requires_grad_(False)
     grads = {name: (torch.zeros_like(t) if g is None else g)
              for name, t, g in zip(PARAM_FIELDS, tensors, grads)}
-    optimizer.step(params, grads, opt_state, iteration)
     with torch.no_grad():
         aux["psnr"] = psnr(rgb, cam.image)
-    return dict(loss=loss.detach(), l1=aux["l1"].detach(),
-                ssim=aux["ssim"].detach(), psnr=aux["psnr"])
+    return grads, dict(loss=loss.detach(), l1=aux["l1"].detach(),
+                       ssim=aux["ssim"].detach(), psnr=aux["psnr"])
+
+
+def train_step(params: GaussianModel, cam: Camera, optimizer, opt_state,
+               iteration: int, active_sh: int, bg, lambda_dssim: float,
+               backend: str, chunk: int, mesh=None,
+               shard_axis: str = "pixels", *, scalars=None) -> dict:
+    """render -> loss -> backward -> Adam, in place, eagerly. Returns the
+    metrics as 0-dim tensors (reading them synchronises with the device).
+    scalars: this step's row of optimizer.step_scalars on the device
+    (made here when None)."""
+    grads, metrics = _step_metrics(
+        params, cam, lambda: params.get_pose(cam.uid), bg, active_sh,
+        lambda_dssim, backend, chunk, mesh, shard_axis)
+    optimizer.step(params, grads, opt_state, iteration, scalars=scalars)
+    return metrics
+
+
+def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
+                    lambda_dssim: float, backend: str, chunk: int, mesh=None,
+                    shard_axis: str = "pixels", *, pool=None):
+    """A k-iteration training block (JAX's make_train_scan):
+    train_block(params, opt_state, view_ids [k], iterations [k],
+    active_sh) -> (params, opt_state, metrics of the block's last
+    iteration), params and moments updated in place.
+
+    cameras: `stack_cameras` of views of one shape. Each step gathers its
+    view by a device step counter from the block's view ids, and its
+    Adam factors from the block's `optimizer.step_scalars` table; both are
+    copied to the device once per block, so the step holds no host value.
+    On a card (without a mesh) the first iterations run eagerly on a side
+    stream, one step is captured into a CUDA graph, and every later
+    iteration is a replay (utils/cuda_graphs.StepLoop). A graph is kept
+    per (active_sh, the demoted capacity signatures for a capacity
+    backend, the tensors' storage), all in one memory pool (`pool`, or
+    one of this block function's own). On the CPU, or with a mesh, the
+    same step runs in a Python loop.
+    `active_sh` is static per block: callers split blocks at SH-ramp
+    boundaries, as train_joint does."""
+    dev = bg.device
+    if dev.type == "cuda" and mesh is None and pool is None:
+        pool = torch.cuda.graph_pool_handle()
+    blocks: dict = {}
+
+    def statics(params, opt_state, k: int, active_sh: int):
+        """(the loop, its tensors) of this block's key, with room for k
+        iterations (more room means a new capture)."""
+        key = (active_sh, _is_capacity_backend(backend)
+               and frozenset(driver._guard.demoted),
+               tuple(t.data_ptr() for t in params.tensors()
+                     + list(opt_state.m.values())
+                     + list(opt_state.v.values())))
+        if key not in blocks:
+            blocks.clear()  # a stale key's graph is never replayed again
+            # the step's tensors: `step` holds them, never the loop (no
+            # reference cycle keeps a dead graph for the cyclic collector)
+            bufs = SimpleNamespace(cap=0, counter=torch.zeros(
+                1, dtype=torch.int64, device=dev))
+
+            def step():
+                i = bufs.counter
+                cam = gather_camera(cameras, bufs.views.index_select(0, i))
+                grads, metrics = _step_metrics(
+                    params, cam,
+                    lambda: params.cam_poses.index_select(0, cam.uid)[0],
+                    bg, active_sh, lambda_dssim, backend, chunk, mesh,
+                    shard_axis)
+                optimizer.apply_step(params, grads, opt_state,
+                                     bufs.table.index_select(0, i)[0])
+                i.add_(1)
+                return metrics
+
+            blocks[key] = (StepLoop(step, dev, "make_train_scan", pool,
+                                    capture=mesh is None), bufs)
+        loop, bufs = blocks[key]
+        if bufs.cap < k:  # room for 1024 iterations (32 KB) at least
+            bufs.cap = cap = 1 << max(k - 1, 1023).bit_length()
+            bufs.views = torch.zeros(cap, dtype=torch.int64, device=dev)
+            bufs.table = torch.zeros((cap, len(PARAM_FIELDS) + 1),
+                                     device=dev)
+            loop.reset_graph()
+        return loop, bufs
+
+    def train_block(params, opt_state, view_ids, iterations, active_sh: int):
+        k = len(iterations)
+        loop, bufs = statics(params, opt_state, k, active_sh)
+        bufs.table[:k].copy_(to_device(optimizer.step_scalars(
+            iterations, opt_state.step + 1), dev))
+        bufs.views[:k].copy_(to_device(np.asarray(view_ids), dev,
+                                       torch.int64))
+        bufs.counter.zero_()
+        metrics = loop.run(k)
+        opt_state.step += k
+        return params, opt_state, {n: v.clone() for n, v in metrics.items()}
+
+    return train_block
 
 
 # backend='auto': refuse binned/tiled above these capacities (list memory
@@ -215,6 +328,11 @@ def train_joint(
 
     Iterations run in blocks that end at log boundaries and never cross an
     SH-ramp boundary, as the JAX loop's scan blocks do. With
+    trainer_cfg.scan, no viewer and one image shape (JAX's condition) and
+    no mesh, each block is one call of a make_train_scan
+    block function of its backend (on a card: graph replays); otherwise
+    train_step runs per iteration. Both read the same Adam table, so the
+    two give the same bits on the CPU. With
     backend="auto" on a scene of one image shape, blocks of
     probe = min(10, log_every) iterations come first: blocks 0-1 run the
     dense kernels and blocks 2-3 the capacity candidate (_binned_candidate,
@@ -261,6 +379,27 @@ def train_joint(
 
     log_every = trainer_cfg.log_every
     mixed_shapes = len({(c.height, c.width) for c in cameras}) > 1
+    use_scan = trainer_cfg.scan and viewer is None and not mixed_shapes
+    if use_scan and mesh is not None:
+        use_scan = False
+        if runtime.is_main_process():
+            print("[train] mesh: iterations step eagerly (captured blocks "
+                  "over collectives are not supported)", flush=True)
+    if use_scan:
+        stacked = stack_cameras(cameras)
+        pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+        block_fns: dict = {}  # backend name -> make_train_scan block
+
+        def block_fn(name: str):
+            """The block function of `name`; those of names no longer in
+            play are dropped with their graphs."""
+            for stale in set(block_fns) - {name, cur_name, alt_name}:
+                del block_fns[stale]
+            if name not in block_fns:
+                block_fns[name] = make_train_scan(
+                    optimizer, stacked, bg, opt_cfg.lambda_dssim, name,
+                    trainer_cfg.chunk, pool=pool)
+            return block_fns[name]
     cur_name = trainer_cfg.backend
     alt_name: Optional[str] = None
     if cur_name == "auto":
@@ -323,14 +462,24 @@ def train_joint(
         if timed:
             _sync(dev)
         t_blk = _clock()
-        for i in range(it, end + 1):
-            if viewer is not None:
-                _serve_viewer(viewer, params, name, trainer_cfg.chunk)
-            view = next_view()
-            active_sh = min(i // interval, params.max_sh_degree)
-            metrics = train_step(params, cameras[view], optimizer, opt_state,
-                                 i, active_sh, bg, opt_cfg.lambda_dssim,
-                                 name, trainer_cfg.chunk, **sharded)
+        active_sh = min(it // interval, params.max_sh_degree)
+        if use_scan:
+            views = [next_view() for _ in range(it, end + 1)]
+            params, opt_state, metrics = block_fn(name)(
+                params, opt_state, views, list(range(it, end + 1)),
+                active_sh)
+        else:
+            table = to_device(optimizer.step_scalars(
+                range(it, end + 1), opt_state.step + 1), dev)
+            for j, i in enumerate(range(it, end + 1)):
+                if viewer is not None:
+                    _serve_viewer(viewer, params, name, trainer_cfg.chunk)
+                view = next_view()
+                metrics = train_step(params, cameras[view], optimizer,
+                                     opt_state, i, active_sh, bg,
+                                     opt_cfg.lambda_dssim, name,
+                                     trainer_cfg.chunk, **sharded,
+                                     scalars=table[j])
         if timed:
             _sync(dev)
         per_iter = (_clock() - t_blk) / (end - it + 1)

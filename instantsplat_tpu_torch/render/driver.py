@@ -18,11 +18,15 @@ The capacity backends go through a rate-limited overflow guard: on the
 first call for an (N, H, W, capacities) signature and every
 _BINNED_CHECK_EVERY calls after, the lists' overflow flag is read; an
 overflowing signature is demoted to the dense kernels for good, with a
-warning, since the dense kernels never drop a splat.
+warning, since the dense kernels never drop a splat. Inside a block of
+steps that runs from a captured CUDA graph (utils/cuda_graphs.StepLoop),
+nothing is read: every call ORs its lists' flag into a device tensor,
+read once at the block's end (`recording_overflow`, `settle_overflow`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import NamedTuple, Optional
 
@@ -35,7 +39,9 @@ from instantsplat_tpu_torch.ops import (
     rasterize_pallas_tiled,
 )
 from instantsplat_tpu_torch.ops.frontend import compute_columns
-from instantsplat_tpu_torch.ops.rasterize_lists import splat_valid
+from instantsplat_tpu_torch.ops.rasterize import composite_out
+from instantsplat_tpu_torch.ops.rasterize_lists import (composite_lists,
+                                                        splat_valid)
 
 # Finite "invalid" depth sentinel: sorts after every real depth, and a zero
 # compositing weight times it stays zero (inf would give 0 * inf = NaN).
@@ -114,11 +120,14 @@ _BINNED_CHECK_EVERY = 100
 
 
 class _OverflowGuard:
-    """Call counts and demoted signatures of the capacity backends."""
+    """Call counts and demoted signatures of the capacity backends; while a
+    block of steps runs (utils/cuda_graphs.StepLoop), the block's overflow
+    flags by signature."""
 
     def __init__(self):
         self.calls: dict = {}
         self.demoted: set = set()
+        self.flags: Optional[dict] = None
 
     def newly_demoted(self, key, overflow_fn) -> bool:
         """Count a call of signature `key`; on its first call and every
@@ -133,12 +142,80 @@ class _OverflowGuard:
             return True
         return False
 
+    def record(self, key, overflow: torch.Tensor):
+        """OR a call's overflow flag into the block's flag for `key`, on
+        the device (no host read). A block's first calls run eagerly
+        (StepLoop's warm-up), which is where a flag is made; a captured
+        step writes into it on every replay."""
+        flag = self.flags.get(key)
+        if flag is not None:
+            flag.logical_or_(overflow)
+        elif overflow.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"overflow guard: signature {key} first "
+                               "seen while a step was being captured")
+        else:
+            self.flags[key] = overflow.clone()
+
 
 _guard = _OverflowGuard()
 
 
+@contextlib.contextmanager
+def recording_overflow(flags: dict):
+    """Inside, every capacity-backend render ORs its lists' overflow flag
+    into flags[signature] instead of reading it (see settle_overflow)."""
+    old, _guard.flags = _guard.flags, flags
+    try:
+        yield
+    finally:
+        _guard.flags = old
+
+
+def settle_overflow(flags: dict) -> bool:
+    """At a block's end: read the block's flags (one host read) and demote,
+    with the warning, each signature whose lists overflowed in any of its
+    calls. -> True when one was demoted. The JAX package's scan checks
+    nothing inside a block; the port checks every call and acts here."""
+    keys = [k for k in flags if k not in _guard.demoted]
+    if not keys:
+        return False
+    hit = torch.stack([flags[k] for k in keys]).cpu().tolist()
+    for key, overflowed in zip(keys, hit):
+        if overflowed:
+            _guard.demoted.add(key)
+            _warn_demoted(key)
+    return any(hit)
+
+
+def _warn_demoted(key):
+    if key[0] == "tiled":
+        _log.warning(
+            "tiled rasterizer capacity exhausted for N=%d %dx%d "
+            "(pairs would be dropped); auto-switching this signature "
+            "to the dense pallas backend. To keep tiling, re-probe "
+            "tiled_view_requirements (current cf=%s dy=%s dx=%s).",
+            *key[1:])
+        return
+    cf, dl = key[3:]
+    remedy = (f"re-probe binned_view_requirements for fresh capacities "
+              f"(current cap_factor={cf}, d_levels={dl})"
+              if cf is not None else
+              "raise rasterize_pallas_binned.CAP_FACTOR / D_LEVELS")
+    _log.warning(
+        "binned rasterizer bin capacity exhausted for N=%d %dx%d "
+        "(pairs would be dropped); auto-switching this signature to "
+        "the dense pallas backend. To keep binning, %s.", *key[:3], remedy)
+
+
 def _columns(packed):
     return packed[:, :2], packed[:, 2:5], packed[:, 5], splat_valid(packed)
+
+
+def _capacity_key(packed, height: int, width: int, backend: str):
+    n = int(packed.shape[0])
+    if backend.startswith("pallas-binned"):
+        return (n, height, width, *_parse_binned_caps(backend))
+    return ("tiled", n, height, width, *_parse_tiled_caps(backend))
 
 
 def _binned_backend_or_dense(packed, height: int, width: int,
@@ -146,18 +223,10 @@ def _binned_backend_or_dense(packed, height: int, width: int,
     """The backend to use for this call: `backend`, or "pallas" once its
     lists were found to overflow (port of the JAX driver's guard)."""
     cf, dl = _parse_binned_caps(backend)
-    key = (int(packed.shape[0]), height, width, cf, dl)
+    key = _capacity_key(packed, height, width, backend)
     if _guard.newly_demoted(key, lambda: rasterize_pallas_binned.bin_overflow(
             *_columns(packed), height, width, cf, dl)):
-        remedy = (f"re-probe binned_view_requirements for fresh capacities "
-                  f"(current cap_factor={cf}, d_levels={dl})"
-                  if cf is not None else
-                  "raise rasterize_pallas_binned.CAP_FACTOR / D_LEVELS")
-        _log.warning(
-            "binned rasterizer bin capacity exhausted for N=%d %dx%d "
-            "(pairs would be dropped); auto-switching this signature to "
-            "the dense pallas backend. To keep binning, %s.",
-            *key[:3], remedy)
+        _warn_demoted(key)
     return "pallas" if key in _guard.demoted else backend
 
 
@@ -165,16 +234,31 @@ def _tiled_backend_or_dense(packed, height: int, width: int,
                             backend: str) -> str:
     """As _binned_backend_or_dense, for the 2-D tiled backend."""
     cf, dy, dx = _parse_tiled_caps(backend)
-    key = ("tiled", int(packed.shape[0]), height, width, cf, dy, dx)
+    key = _capacity_key(packed, height, width, backend)
     if _guard.newly_demoted(key, lambda: rasterize_pallas_tiled.tile_overflow(
             *_columns(packed), height, width, cf, dy, dx)):
-        _log.warning(
-            "tiled rasterizer capacity exhausted for N=%d %dx%d "
-            "(pairs would be dropped); auto-switching this signature "
-            "to the dense pallas backend. To keep tiling, re-probe "
-            "tiled_view_requirements (current cf=%s dy=%s dx=%s).",
-            key[1], key[2], key[3], cf, dy, dx)
+        _warn_demoted(key)
     return "pallas" if key in _guard.demoted else backend
+
+
+def _recorded_lists(packed, height: int, width: int, backend: str):
+    """Inside a block (recording_overflow): the capacity backend's lists,
+    their overflow flag recorded for the block's end. -> (lists, geometry,
+    forward kernel, backward kernel), or None once the signature is
+    demoted (the dense kernels then run)."""
+    key = _capacity_key(packed, height, width, backend)
+    if key in _guard.demoted:
+        return None
+    if backend.startswith("pallas-binned"):
+        lists, geom = rasterize_pallas_binned.bin_lists(
+            packed, height, width, *_parse_binned_caps(backend))
+        kernels = rasterize_pallas_binned.K3, rasterize_pallas_binned.K4
+    else:
+        lists, geom = rasterize_pallas_tiled.tile_lists(
+            packed, height, width, *_parse_tiled_caps(backend))
+        kernels = rasterize_pallas_tiled.K5, rasterize_pallas_tiled.K6
+    _guard.record(key, lists.overflow)
+    return lists, geom, *kernels
 
 
 def _sizing_columns(gaussians, pose, camera, scale_modifier):
@@ -230,11 +314,20 @@ def render(gaussians, camera, pose: Optional[torch.Tensor] = None,
     packed, cols = prepare_packed_splats(
         gaussians, pose, camera.fx, camera.fy, camera.cx, camera.cy,
         scale_modifier, active_sh_degree, h, w)
-    if backend.startswith("pallas-binned"):
+    recorded = None
+    if _guard.flags is not None and backend.startswith(
+            ("pallas-binned", "pallas-tiled")):
+        recorded = _recorded_lists(packed, h, w, backend)
+        if recorded is None:
+            backend = "pallas"
+    elif backend.startswith("pallas-binned"):
         backend = _binned_backend_or_dense(packed.detach(), h, w, backend)
     elif backend.startswith("pallas-tiled"):
         backend = _tiled_backend_or_dense(packed.detach(), h, w, backend)
-    if backend == "pallas":
+    if recorded is not None:
+        out = composite_out(*composite_lists(packed, *recorded[:2], h, w,
+                                             *recorded[2:]), bg)
+    elif backend == "pallas":
         out = rasterize_pallas.composite_tiles_packed(packed, h, w, bg)
     elif backend == "oracle":
         acc, tfin, _ = rasterize.composite_plain(packed, h, w, chunk=chunk)

@@ -1,0 +1,145 @@
+"""Device-resident loops: one step captured in a CUDA graph and replayed.
+
+The JAX package runs its iteration loops on the device (stage 2's
+`make_train_scan` lax.scan, the pose refiner's and the aligner's
+fori_loop blocks): the host dispatches a block of iterations and reads
+nothing inside it. `StepLoop` is the port's counterpart. Its `step` reads
+and writes only tensors that live as long as the loop (the parameters,
+the moments, per-iteration tables indexed by a device step counter), so
+one captured launch sequence serves every iteration.
+
+On a CUDA device `StepLoop.run(n)` runs the first WARMUP steps eagerly on a
+side stream (PyTorch's rule for capturing autograd and lazily initialised
+libraries; they are real steps of the loop), captures the next step once
+(capture executes nothing) and replays the graph for the rest: one
+cudaGraphLaunch per iteration, no host read inside the block. A capture
+that fails, or a step that synchronises with the host while it is being
+captured, raises naming the loop; nothing falls back to eager steps. On
+the CPU the same step runs in a Python loop: that is the plain version,
+which the tests hold to the eager loops bit for bit.
+
+The capacity backends' overflow guard (render/driver.py) ORs each call's
+overflow flag into the loop's `flags` while a block runs; the flags are
+read once, at the block's end, where overflowing signatures are demoted.
+"""
+
+from __future__ import annotations
+
+import gc
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+WARMUP = 3  # eager steps on a side stream before a loop's first capture
+
+
+def to_device(array, device, dtype=torch.float32) -> torch.Tensor:
+    """A host array on `device` without a host sync: through pinned memory
+    and an asynchronous copy on a card."""
+    t = torch.as_tensor(np.ascontiguousarray(array), dtype=dtype)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _kernels():
+    from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
+
+    return Kernel.registry
+
+
+class StepLoop:
+    """`step()` run n times: replays of one captured CUDA graph on a card,
+    a Python loop on the CPU. `step` returns what the loop reports (a
+    tensor or a dict of tensors, the last iteration's after `run`)."""
+
+    replays = 0  # cudaGraphLaunch calls of every loop in the process
+
+    def __init__(self, step: Callable[[], Any], device, name: str,
+                 pool=None, capture: bool = True):
+        self.step = step
+        self.device = torch.device(device)
+        self.capture = capture
+        self.name = name
+        self.pool = pool
+        self.flags: dict = {}  # overflow guard flags (render/driver.py)
+        self.graph = None
+        self.warm = 0
+        self.out = None
+        self.per_replay: dict = {}  # Kernel -> launches in one replay
+
+    @property
+    def captured(self) -> bool:
+        """Replays of a graph (on a card, unless capture=False: a step with
+        collectives) or a Python loop."""
+        return self.capture and self.device.type == "cuda"
+
+    def reset_graph(self):
+        """Drop the graph (its static tensors were re-allocated); the next
+        run captures again, without new warm-up steps."""
+        self.graph = None
+        self.out = None
+
+    def run(self, n: int):
+        """Run n steps; -> the last step's outputs."""
+        from instantsplat_tpu_torch.render import driver
+
+        for f in self.flags.values():
+            f.zero_()
+        with driver.recording_overflow(self.flags):
+            out = self._run(n) if self.captured else self._loop(n)
+        driver.settle_overflow(self.flags)
+        return out
+
+    def _loop(self, n: int):
+        out = None
+        for _ in range(n):
+            out = self.step()
+        return out
+
+    def _run(self, n: int):
+        out, done = None, 0
+        if self.graph is None and self.warm < WARMUP:
+            done = min(n, WARMUP - self.warm)
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                out = self._loop(done)
+            main.wait_stream(side)
+            self.warm += done
+        if done == n:
+            return out
+        if self.graph is None:
+            self._capture()
+        for _ in range(n - done):
+            self.graph.replay()
+        StepLoop.replays += n - done
+        for kernel, k in self.per_replay.items():
+            kernel.replayed(k * (n - done))
+        return self.out
+
+    def _capture(self):
+        for kernel in _kernels():
+            kernel.captured = 0
+        graph = torch.cuda.CUDAGraph()
+        # an unreachable graph freed by the cyclic collector while this one
+        # captures would destroy it mid-capture, which invalidates the
+        # capture: collect now, and not during the capture
+        gc.collect()
+        was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), \
+                    torch.cuda.graph(graph, pool=self.pool):
+                out = self.step()
+        except Exception as e:
+            raise RuntimeError(f"{self.name}: CUDA graph capture of one "
+                               f"step failed ({type(e).__name__}: {e})") from e
+        finally:
+            if was_enabled:
+                gc.enable()
+        self.per_replay = {k: k.captured for k in _kernels() if k.captured}
+        self.graph, self.out = graph, out

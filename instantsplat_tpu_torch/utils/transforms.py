@@ -32,12 +32,19 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
+def _bottom_row(like: torch.Tensor) -> torch.Tensor:
+    """[0, 0, 0, 1] in like's dtype, made on its device (no host copy, so
+    it can be captured in a CUDA graph)."""
+    row = like.new_zeros(4)
+    row[3] = 1.0
+    return row
+
+
 def pose_to_matrix(pose: torch.Tensor) -> torch.Tensor:
     """Pose vector(s) [..., 7] -> 4x4 world-to-camera matrices."""
     R = quat_to_rotmat(pose[..., :4])
     top = torch.cat([R, pose[..., 4:7, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=pose.dtype,
-                          device=pose.device).expand(*pose.shape[:-1], 1, 4)
+    bottom = _bottom_row(pose).expand(*pose.shape[:-1], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -141,8 +148,7 @@ def se3_inverse(M: torch.Tensor) -> torch.Tensor:
     Rt = M[..., :3, :3].transpose(-1, -2)
     t_inv = -torch.einsum("...ij,...j->...i", Rt, M[..., :3, 3])
     top = torch.cat([Rt, t_inv[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=M.dtype,
-                          device=M.device).expand(*M.shape[:-2], 1, 4)
+    bottom = _bottom_row(M).expand(*M.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -61,11 +61,8 @@ EXCEPTIONS = {
     "ops/rasterize_pallas_tiled.py::SCAN_IMPL": _TPU,
     "render/driver.py::sort_payload": "the TPU's one-sort custom VJP "
     "(TPU scatter is serialized); torch.sort's backward is a gather",
-    "pipelines/trainer.py::make_train_scan": "the TPU's scanned block "
-    "of iterations under the dispatch governor; the port steps eagerly",
     "pipelines/trainer.py::make_train_step": "became the eager "
     "pipelines/trainer.py::train_step",
-    "pipelines/trainer.py::TrainerConfig.scan": "selects make_train_scan",
     "pipelines/trainer.py::TrainerConfig.dispatch_budget_s": "the TPU's "
     "~60 s dispatch governor",
     "pipelines/trainer.py::TrainerConfig.profile_dir": "jax.profiler "

@@ -405,17 +405,34 @@ def test_guard_checks_at_its_rate(fresh_guard, monkeypatch):
 def _rig(monkeypatch, slow):
     """Record (iteration, backend) of every train step, and make the probe's
     clock a fake one that each step advances by 1 s, or 10 s when
-    slow(backend)."""
+    slow(backend). The steps are those of the scanned blocks
+    (make_train_scan, TrainerConfig.scan's default) and of the eager
+    loop (train_step)."""
     seen = []
     now = [0.0]
     real = tr.train_step
+    real_scan = tr.make_train_scan
 
-    def step(params, cam, opt, state, it, sh, bg, lam, backend, chunk):
+    def step(params, cam, opt, state, it, sh, bg, lam, backend, chunk,
+             **kw):
         seen.append((it, backend))
         now[0] += 10.0 if slow(backend) else 1.0
-        return real(params, cam, opt, state, it, sh, bg, lam, backend, chunk)
+        return real(params, cam, opt, state, it, sh, bg, lam, backend, chunk,
+                    **kw)
+
+    def scan(optimizer, cameras, bg, lam, backend, chunk, **kw):
+        block = real_scan(optimizer, cameras, bg, lam, backend, chunk, **kw)
+
+        def rigged(params, state, views, iterations, sh):
+            for it in iterations:
+                seen.append((it, backend))
+                now[0] += 10.0 if slow(backend) else 1.0
+            return block(params, state, views, iterations, sh)
+
+        return rigged
 
     monkeypatch.setattr(tr, "train_step", step)
+    monkeypatch.setattr(tr, "make_train_scan", scan)
     monkeypatch.setattr(tr, "_clock", lambda: now[0])
     return seen
 

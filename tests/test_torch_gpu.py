@@ -6,7 +6,10 @@ live viewer render on the card, and the sparse-alignment family:
 matching and sparse alignment on the card against the CPU, a
 densification followed by a dense train step on the card, and
 cli.pretrain's TINY training step (float32 card against CPU, bf16, a
-checkpoint round trip). Run them on a machine with a card:
+checkpoint round trip), and the captured training blocks
+(make_train_scan): replays against eager steps, no host sync in a
+replayed block, and a step with a host read failing its capture. Run
+them on a machine with a card:
 
     python -m pytest tests/ -m gpu -q
 
@@ -786,3 +789,122 @@ def test_train_joint_on_one_nccl_rank(nccl_one_rank):
                                       log_every=1), mesh=mesh)
         curves.append(np.array([m["loss"] for _, m in hist]))
     np.testing.assert_allclose(curves[1], curves[0], rtol=1e-3)
+
+
+# ---- device-resident loops: captured CUDA graphs ---------------------------
+
+
+def _scan_case(cuda, total=50):
+    """Gaussians, one view stacked, the optimizer, a fresh state and a
+    snapshot/restore pair that writes a state back into the SAME tensors
+    (a captured graph reads their storage)."""
+    from instantsplat_tpu_torch.models.camera import stack_cameras
+    from instantsplat_tpu_torch.opt.gaussian_opt import (
+        GaussianOptimizer, OptimizationConfig)
+
+    g, cam = _scene(2000, 48, 64, 3, cuda)
+    opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
+                                               optim_pose=True),
+                            total_iterations=total)
+    state = opt.init(g)
+
+    def snapshot():
+        return ({f: getattr(g, f).clone() for f in PARAM_FIELDS},
+                {f: state.m[f].clone() for f in PARAM_FIELDS},
+                {f: state.v[f].clone() for f in PARAM_FIELDS}, state.step)
+
+    def restore(snap):
+        p, m, v, step = snap
+        for f in PARAM_FIELDS:
+            getattr(g, f).copy_(p[f])
+            state.m[f].copy_(m[f])
+            state.v[f].copy_(v[f])
+        state.step = step
+
+    return g, cam, stack_cameras([cam]), opt, state, snapshot, restore
+
+
+def _eager_steps(g, cam, opt, state, iters):
+    from instantsplat_tpu_torch.pipelines.trainer import train_step
+
+    for i in iters:
+        train_step(g, cam, opt, state, i, 0, torch.zeros(3,
+                                                         device=g.xyz.device),
+                   0.2, "pallas", 256)
+
+
+def _rel_l2(a, b):
+    """Relative L2 by field (absolute where b is all zero)."""
+    return {f: float(torch.linalg.norm((a[f] - b[f]).double()))
+            / (float(torch.linalg.norm(b[f].double())) or 1.0)
+            for f in PARAM_FIELDS}
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_captured_block_matches_eager(cuda, k):
+    """From one state: a block of k replays of the captured step (k = 8:
+    every step has its own learning rate and bias corrections, which a
+    scalar frozen at capture would get wrong) against k eager steps,
+    within twice the spread of two eager runs (K2 adds with atomics) plus
+    1e-6, by relative L2 (Adam moves a parameter whose gradient sits at
+    the rounding floor by +-lr, whichever way the atomics round it)."""
+    from instantsplat_tpu_torch.pipelines.trainer import make_train_scan
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    g, cam, stacked, opt, state, snapshot, restore = _scan_case(cuda)
+    s0 = snapshot()
+    block = make_train_scan(opt, stacked, torch.zeros(3, device=cuda), 0.2,
+                            "pallas", 256)
+    block(g, state, [0] * (WARMUP + 1), range(1, WARMUP + 2), 0)  # capture
+    restore(s0)
+    replays = StepLoop.replays
+    _, _, metrics = block(g, state, [0] * k, range(1, k + 1), 0)
+    assert StepLoop.replays - replays == k and state.step == k
+    assert np.isfinite(float(metrics["loss"]))
+    captured = snapshot()[0]
+    eager = []
+    for _ in range(2):
+        restore(s0)
+        _eager_steps(g, cam, opt, state, range(1, k + 1))
+        eager.append(snapshot()[0])
+    spread = _rel_l2(eager[1], eager[0])
+    got = _rel_l2(captured, eager[0])
+    for f in PARAM_FIELDS:
+        assert got[f] <= 2 * spread[f] + 1e-6, (f, got[f], spread[f])
+
+
+def test_replay_makes_no_host_sync(cuda):
+    """A block of replays under torch.cuda.set_sync_debug_mode("error"):
+    nothing between the block's start and its end reads the device."""
+    from instantsplat_tpu_torch.pipelines.trainer import make_train_scan
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP
+
+    g, cam, stacked, opt, state, _, _ = _scan_case(cuda)
+    block = make_train_scan(opt, stacked, torch.zeros(3, device=cuda), 0.2,
+                            "pallas", 256)
+    block(g, state, [0] * (WARMUP + 1), range(1, WARMUP + 2), 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, metrics = block(g, state, [0] * 6, range(WARMUP + 2,
+                                                      WARMUP + 8), 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(metrics["loss"]))
+
+
+def test_host_read_in_a_step_makes_capture_raise(cuda, monkeypatch):
+    """A step that reads a device value on the host runs eagerly in the
+    warm-up but cannot be captured: the block raises, naming the loop,
+    and does not go on eagerly."""
+    from instantsplat_tpu_torch.pipelines import trainer as tr
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP
+
+    g, cam, stacked, opt, state, _, _ = _scan_case(cuda)
+    real = tr.psnr
+    monkeypatch.setattr(tr, "psnr", lambda a, b: real(a, b).new_full(
+        (), float(real(a, b))))
+    block = tr.make_train_scan(opt, stacked, torch.zeros(3, device=cuda),
+                               0.2, "pallas", 256)
+    with pytest.raises(RuntimeError, match="make_train_scan"):
+        block(g, state, [0] * (WARMUP + 2), range(1, WARMUP + 3), 0)
