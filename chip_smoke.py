@@ -67,7 +67,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. Stages 3 and 5 on the model of phase 4's first dense run, through
    instantsplat_tpu_torch.cli.render.main and cli.metrics.main: the train
    views; N_TEST_VIEWS test views, each refined from a start 2 degrees and
-   0.1 off its true pose by 500 Adam steps through KR, K1 and K2 with the
+   0.1 off its true pose by 200 Adam steps through KR, K1 and K2 with the
    Gaussians frozen (each view's best loss must fall below its start loss
    and its pose come nearer the truth), then rendered; the FPS benchmark;
    the interpolated path with --backend auto; results.json (finite PSNR,
@@ -89,8 +89,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tokens, every decoder hook, pts3d, conf and desc; bf16 against float32
    over all six pairs under tests/test_mast3r.py's law; encoder ms per
    image and decoder + heads ms per pair (batch 6) in bf16 and float32.
-   Then instantsplat_tpu_torch.cli.init_geo.main as scripts/run_eval.py
-   calls it (--ckpt_path random:0 --focal_avg --co_vis_dsp
+   The drawn weights are saved as random0.pth, which the CLIs of phases 7
+   and 8 load (a user's checkpoint path; the draw is not repeated). Then
+   instantsplat_tpu_torch.cli.init_geo.main as scripts/run_eval.py calls
+   it (--ckpt_path random0.pth --focal_avg --co_vis_dsp
    --conf_aware_ranking, bf16): every artifact, finite points and poses,
    the stage's wall time and its parts. Then run_init_geo with an oracle
    pointmap backend (the ray-cast geometry of the three train views plus
@@ -110,12 +112,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    train camera (centre errors and the registration scale printed, not
    gated: the reference's [R, s*T] transport moves centres by
    (1 - s) R c), no compositor launch; cli.init_test_pose --ckpt_path
-   random:0 (float32 MASt3R over the 210 pairs): finite test poses, its
+   random0.pth (float32 MASt3R over the 210 pairs): finite test poses, its
    parts; cli.run_eval --skip_init (stages 2-5 as subprocesses, 200
    iterations, 50 refinement steps a test view): rc 0, four logs,
    results.json with a finite PSNR, and no stage ran nvcc again (the
    libraries under build/ unchanged); cli.run_infer (init_geo
-   --infer_video on three frames with random:0, 20 iterations, the
+   --infer_video on three frames with random0.pth, 20 iterations, the
    interpolated video's frames); cli.train --enable_viewer
    --test_iterations 10 20 (20 iterations, --backend pallas) with a
    loopback client that sends a view request before training starts (its
@@ -135,7 +137,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (relative rotation < 0.05 rad, translation < 0.15, scales within 0.2
    of 1, focals within 15%); the card's matches of edge (0, 1) equal to
    the CPU's and 30 + 30 iterations card against CPU (c2w within 1e-3);
-   (2) the same on the MASt3R pairs' descriptors (finite outputs, shapes);
+   (2) the same on the MASt3R pairs' descriptors at 100 + 100 (finite
+   outputs, shapes);
    (3) refine_matches_coarse_to_fine (maxdim 256) with the oracle field
    (every match within 1.5 px of the truth) and with MASt3R on each crop
    pair; (4) tsdf_refine_depth (2 iterations, 128 samples) on the oracle
@@ -149,7 +152,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    EXR codec's build, C++ against Python decoders bit for bit, and a
    three-frame Blender scene read by read_nerf_synthetic and rendered
    through KR/K1 (one launch each). Prints each part's seconds and peak
-   card memory.
+   card memory. Both sparse-alignment phases run captured (replays of one
+   CUDA graph of their step).
 10. MASt3R pre-training at full width (ViT-L/BaseDecoder, phase 7's
    float32 random:0 weights, not drawn again): (a) an 8-view posed scene
    at 512x384 written by `write_synthetic_scene` (PNG images, .npy
@@ -158,17 +162,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the CPU: loss within 1e-4 relative, the global gradient norm and seven
    named leaves within 1e-3 relative L2; (c) `cli.pretrain.main` in
    process: mast3r_finetune with 1024 correspondences, colour jitter,
-   --bf16, 30 optimizer steps of 2 x accum 2 pairs, 4 loader threads, the
+   --bf16, 20 optimizer steps of 2 x accum 2 pairs, 4 loader threads, the
    CLI's default learning rate and warmup; steps 8-10 run under
    torch.profiler (busy share of the loop, top kernels); prints the
-   synchronised ms per step (median and spread of the last 20) and the
+   synchronised ms per step (median and spread of the last 10) and the
    loop's, pairs/s, the achieved TFLOP/s (FLOP from the config), peak card
    memory, the checkpoint's size and save seconds; every step's loss must
    be finite and the loss must fall; (d) `train_loop` resumes that
-   checkpoint at step 30 and runs to 35 (history 31..35), with its load
-   seconds; (e) 5 float32 steps at the same shape. The pointmap scale
-   (max |pts3d|) is printed at the start, at step 30 and at step 35. KR
-   and K1-K6 must launch 0 times over the phase.
+   checkpoint at step 20 and runs to 25 (history 21..25), with its load
+   seconds; (e) 8 float32 steps at the same shape (WARMUP eager, a
+   capture, 4 replays timed). The pointmap scale
+   (max |pts3d|) is printed at the start, at step 20 and at step 25.
+   Every optimizer step after the first WARMUP of a step function is one
+   replay of its captured CUDA graph. KR and K1-K6 must launch 0 times
+   over the phase.
 11. The multi-device layer (parallel/) on the one card: NCCL refuses two
    ranks on one device, so (a) every rank's local part of the sharded
    renders runs here, for 2, 3, 4 and 5 virtual ranks on phase 4's model
@@ -181,13 +188,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    d(packed) within 1e-3 relative L2); (b) a child process
    (`python -m chip_smoke --phase11-rank <tmp>`) brings up a one-rank
    NCCL group and drives the library's entry points against their
-   one-device runs: train_joint(mesh=) 50 iterations on each shard axis
+   one-device runs: train_joint(mesh=) 30 iterations on each shard axis
    (loss curves within LOSS_RTOL) and 10 sharded steps under
    torch.profiler (the card's busy share), refine_poses_sharded on phase
-   6's twelve test views (50 steps), align(mesh=) on phase 7's oracle
-   pairs (300 iterations), and 3 float32 DDP and FSDP steps of the
+   6's twelve test views (30 steps), align(mesh=) on phase 7's oracle
+   pairs (300 iterations), and 5 float32 DDP and FSDP steps of the
    full-width MASt3R from phase 10's weights (2 pairs at 224x224, losses
-   within 1e-4). KR, K1, K2, K3 and K4 must launch in the phase.
+   within 1e-4). train_joint and align over the mesh run captured, their
+   collectives in the graphs (NCCL); FSDP steps eagerly. KR, K1, K2, K3
+   and K4 must launch in the phase.
 12. The structured entry points (the JAX package's drop-ins for
    rasterize.composite) on phase 4's dense model at 512x384, 100k splats:
    prepare_sorted_splats bit-equal to prepare_packed_splats;
@@ -211,16 +220,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    times), then at the training shape on phase 4's model, for pallas,
    tiled and binned: one captured step against one eager step from the
    same state (parameters and first moments within twice the spread of
-   two eager steps by relative L2, plus 1e-6), 20 captured iterations and
-   20 eager ones under torch.profiler (cudaGraphLaunch calls must equal
+   two eager steps by relative L2, plus 1e-6), 10 captured iterations and
+   10 eager ones under torch.profiler (cudaGraphLaunch calls must equal
    the iterations replayed; kernel launch API calls per iteration, the
-   device's busy share, device launches by kernel), 50 of each timed
+   device's busy share, device launches by kernel), 30 of each timed
    between two synchronisations, the peak memory; the refiner's ms a
    step on phase 6's views (4 x 100 captured, 2 x 100 eager); the
    aligner's ms an iteration on phase 7's oracle pairs (300, captured and
-   eager). Prints each number beside the card's name and power limit.
-   Phase 4 checks each captured run's replays (all iterations but the
-   first WARMUP of each graph).
+   eager). Then the loops of slice 13, each captured against eager in
+   this call: (g) both sparse-alignment phases on phase 9's oracle
+   inputs (100 + 100; c2w within SPARSE_POSE_ATOL), (h) the full-width
+   pre-training step at phase 10's shape from phase 7's random:0
+   weights: in float32, one replay after the capture's step against two
+   eager steps from the same state (parameters and first moments within
+   twice the eager spread by relative L2, + 1e-6) and the replays' lr
+   equal to lr_sched(step) in float32 exactly; in bf16, WARMUP eager
+   steps, then 6 captured and 3 eager, timed and profiled (loss curves
+   within LOSS_RTOL as a sanity check only: the warm-up steps, eager in
+   both runs, show the spread of bf16 atomics amplified by Adam, and a
+   warm-up learning rate moves the loss too little to tell a broken
+   step), (i) in a child process
+   (`python -m chip_smoke --phase13-rank <tmp>`) with a one-rank NCCL
+   group,
+   train_joint over the mesh (60 iterations in blocks of 10; loss curves
+   within LOSS_RTOL) and align over it (100 iterations; poses within
+   ALIGN_POSE_ATOL). Each prints ms per iteration or step, kernel launch
+   API calls and cudaGraphLaunch calls per iteration (torch.profiler
+   over replays only; one cudaGraphLaunch an iteration is required), the
+   busy share, peak memory and the largest difference of the two runs.
+   Prints each number beside the card's name and power limit. Phase 4
+   checks each captured run's replays (all iterations but the first
+   WARMUP of each graph).
 
 The last lines are one JSON object {"kernels": [...]} with seven entries
 (each with `launches`, from its own path's run in phase 4,
@@ -280,7 +310,8 @@ FRAME_ANGLES = tuple([-0.15 + 0.15 * k / 12 for k in range(12)]
                      + [0.0, 0.075, 0.15])
 TRAIN_FRAMES = (0, 12, 14)
 N_TEST_VIEWS = 12
-REFINE_ITERS = 500  # the reference's test-time pose refinement
+# the reference refines 500 steps a view; cut for the smoke's time limit
+REFINE_ITERS = 200
 FPS_RENDERS = 1000  # renders of the --test_fps benchmark (plus a warm one)
 # start poses of the test views: turned 2 degrees about a random axis and
 # moved 0.1 (the cameras stand 4 from the surface) in a random direction
@@ -335,6 +366,9 @@ VIEWER_REQUESTS = 5
 # subsample 8, 300 coarse + 300 fine iterations; card against CPU over 30
 # + 30 (the backward of the gathers adds with atomics on the card), poses
 # within 1e-3 as stage 1's aligner
+# phase 7 saves its random:0 draw here (in the run's temporary directory);
+# the CLIs of phases 7 and 8, phase 10 and phase 11 load it
+RANDOM0_PTH = "random0.pth"
 SPARSE_SUBSAMPLE = 8
 SPARSE_ITERS = 300
 SPARSE_COMPARE_ITERS = 30
@@ -344,20 +378,21 @@ TSDF_NOISE = 0.05  # on view 0's depth map (the cameras stand 4 away)
 DENSIFY_STATS_ITERS = 10
 DENSIFY_TRAIN_ITERS = 20
 # Phase 10 (MASt3R pre-training): an 8-view posed scene at 512x384,
-# mast3r_finetune with 1024 correspondences a pair, colour jitter; 30 bf16
-# optimizer steps of 2 x accum 2 pairs (36 pairs a pass, so 4 passes),
-# then a resume to 35
+# mast3r_finetune with 1024 correspondences a pair, colour jitter; 20 bf16
+# optimizer steps of 2 x accum 2 pairs (36 pairs a pass), then a resume
+# to 25
 PRETRAIN_VIEWS, PRETRAIN_H, PRETRAIN_W = 8, 384, 512
 PRETRAIN_CORRES = 1024
 PRETRAIN_BATCH, PRETRAIN_ACCUM = 2, 2
-PRETRAIN_STEPS, PRETRAIN_RESUME_TO, PRETRAIN_EPOCHS = 30, 35, 4
+PRETRAIN_STEPS, PRETRAIN_RESUME_TO, PRETRAIN_EPOCHS = 20, 25, 4
 # cli.pretrain's defaults: with 100 warmup steps the learning rate climbs
-# to 3.5e-5 by step 35
+# to 2.5e-5 by step 25
 PRETRAIN_HYPER = dict(base_lr=1e-4, min_lr=1e-6, warmup_steps=100,
                       weight_decay=0.05)
-# the CLI's steps that run under torch.profiler: before the last 20, which
+# the CLI's steps that run under torch.profiler: before the last 10, which
 # are timed
 PRETRAIN_PROFILED = (8, 9, 10)
+PRETRAIN_TIMED = 10
 # float32 (TF32 off) training micro-batch, card against CPU: the loss to
 # 1e-4 relative; the gradients (global norm and the named leaves, one in
 # each part of the model) to 1e-3 relative L2, as they sum over the
@@ -375,12 +410,19 @@ BF16_PEAK = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 P11_WORLDS = (2, 3, 4, 5)
 P11_IMAGE_ATOL = 5e-4
 P11_GRAD_RTOL = 1e-3
-P11_TRAIN_ITERS = 50
-P11_REFINE_ITERS = 50
-P11_PRETRAIN_STEPS = 3
+P11_TRAIN_ITERS = 30  # cut from 50 for the time limit
+P11_REFINE_ITERS = 30
+P11_PRETRAIN_STEPS = 5  # WARMUP eager, then a capture (one device, DDP)
 P11_PRETRAIN_HW = 224  # phase 10's float32 micro-batch side
 P11_PRETRAIN_RTOL = 1e-4
 P11_LIMIT_S = 600  # the one-rank group's child process
+# phase 13 (g)-(i): the loops ported in slice 13, captured against eager
+P13_PROFILED = 10  # iterations or steps under torch.profiler, each mode
+P13_PRETRAIN_CAPTURED, P13_PRETRAIN_EAGER = 6, 3  # after WARMUP steps
+P13_PRETRAIN_PROFILED = 1  # an eager step makes ~22.5k launches
+P13_SPARSE_ITERS = 100  # each phase, captured and eager
+P13_ALIGN_ITERS = 100  # align over the mesh, captured and eager
+P13_TRAIN_ITERS, P13_LOG_EVERY = 60, 10
 
 
 def fail(msg: str):
@@ -595,8 +637,9 @@ def backend_paths(backend: str, packed, height, width):
 def compare(tag, packed, height, width, seed, elementwise,
             backend="pallas"):
     """Hold a backend's forward and backward kernels against the plain
-    version on the same inputs; returns the max abs differences (forward
-    acc/tfin, backward d(packed))."""
+    version on the same inputs. -> (the max abs differences, forward
+    acc/tfin and backward d(packed); the plain backward's ms on these
+    inputs by CUDA events, one call)."""
     import numpy as np
     import torch
 
@@ -611,8 +654,11 @@ def compare(tag, packed, height, width, seed, elementwise,
         backend, packed, height, width)
     p = packed.detach().clone().requires_grad_(True)
     acc_p, tfin_p, lc_p = plain(p)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    marks[0].record()
     (grad_p,) = torch.autograd.grad(
         (acc_p * g_acc).sum() + (tfin_p * g_tfin).sum(), [p])
+    marks[1].record()
     acc_k, tfin_k, lc_k = k_fwd()
     grad_k = k_bwd(g_acc, (g_tfin * tfin_k).contiguous(), tfin_k, lc_k)
     torch.cuda.synchronize()
@@ -644,7 +690,7 @@ def compare(tag, packed, height, width, seed, elementwise,
         if bool(bad.any()):
             fail(f"{tag}: {int(bad.sum())} {kb} gradient entries outside "
                  "rtol 5e-3 / atol 1e-5")
-    return e_acc, e_grad
+    return e_acc, e_grad, marks[0].elapsed_time(marks[1])
 
 
 def compare_rects(tag, packed, height, width):
@@ -724,7 +770,8 @@ def compare_all(tag, packed, height, width, seed, elementwise,
                 overflow=False):
     """The dense, binned and tiled kernels against the plain version; with
     `overflow`, also the deliberately overflowing strings. -> {kernel
-    name: (forward err, backward err)} of the sized strings."""
+    name: compare's result} of the sized strings ("rects": compare_rects'
+    without its first value)."""
     errs = {"rects": compare_rects(tag, packed, height, width)[1:],
             "dense": compare(tag, packed, height, width, seed, elementwise)}
     for kind, backend in sized_backends(packed, height, width).items():
@@ -1105,14 +1152,11 @@ def training_shape(params, cam, dev, path_launches):
         b_ms = graph_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
         f_events_ms = cuda_ms(k_fwd, 20)
         b_events_ms = cuda_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
+        # the plain forward without autograd's recording, warmed once;
+        # the plain backward: compare_all's one call on these inputs
         with torch.no_grad():
             plain_f_ms = cuda_ms(lambda: plain(packed), 1, 1)
-        pg = packed.clone().requires_grad_(True)
-        acc_p, tfin_p, _ = plain(pg)
-        obj = (acc_p * g_acc).sum() + (tfin_p * g_tfin).sum()
-        plain_b_ms = cuda_ms(
-            lambda: torch.autograd.grad(obj, [pg], retain_graph=True), 1, 0)
-        del pg, acc_p, tfin_p, obj
+        e_f, e_b, plain_b_ms = errs[kind]
         if listed is None:
             scan_bytes = 8 * n + 4 * scan.mask.numel()
             f_bytes = 40 * n + scan_bytes + 24 * H * W
@@ -1155,7 +1199,6 @@ def training_shape(params, cam, dev, path_launches):
             f"events (plain bwd {plain_b_ms:.2f} ms, bound {bb:.5f} ms by "
             f"{byb})")
         cu, mod, fl, bl = sources[kind]
-        e_f, e_b = errs[kind]
         for name, line, ms, pms, bms, by, err, what in (
                 (kf, fl, f_ms, plain_f_ms, bf, byf, e_f, "forward"),
                 (kb, bl, b_ms, plain_b_ms, bb, byb, e_b, "backward")):
@@ -1571,6 +1614,13 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
 
     t_phase = time.time()
     mast3r = stage_1_mast3r(scene, dev, smi)
+    # the CLIs of phases 7 and 8 load the drawn weights from a checkpoint
+    # file (a user's path) instead of drawing 688 M normals again
+    t0 = time.time()
+    torch.save(mast3r[3].state_dict(), tmp / RANDOM0_PTH)
+    log(f"random:0 weights saved as {RANDOM0_PTH} "
+        f"({(tmp / RANDOM0_PTH).stat().st_size / 1e9:.2f} GB) in "
+        f"{time.time() - t0:.1f} s")
 
     copies = {}
     for name in ("cli", "oracle"):
@@ -1581,7 +1631,7 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
     # ---- cli.init_geo as scripts/run_eval.py calls it ----
     al, _, secs, launches, _ = run_cli(init_cli.main, [
         "-s", copies["cli"], "-m", tmp / "stage1_cli_out", "--n_views", 3,
-        "--ckpt_path", "random:0", "--focal_avg", "--co_vis_dsp",
+        "--ckpt_path", tmp / RANDOM0_PTH, "--focal_avg", "--co_vis_dsp",
         "--conf_aware_ranking"])
     sparse = copies["cli"] / "sparse_3"
     for rel in ("0/images.txt", "0/images.bin", "0/cameras.txt",
@@ -1596,7 +1646,7 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
     t = al.timings
     build = secs - sum(t.values())
     log(f"init_geo [{smi}]: {secs:.2f} s for the stage (3 views {W}x{H}, "
-        f"bf16, random:0): model build {build:.2f} s, image load "
+        f"bf16, {RANDOM0_PTH}): model build {build:.2f} s, image load "
         f"{t['load']:.2f} s, inference {t['inference']:.2f} s, init_mst "
         f"{t['init_mst']:.2f} s, align {t['align']:.2f} s = "
         f"{t['align'] / ALIGN_ITERS * 1e3:.2f} ms per iteration over "
@@ -1876,7 +1926,7 @@ def stage_tools(oracle: Path, tmp: Path, dev, smi: str):
     torch.cuda.reset_peak_memory_stats()
     timings, _, secs, launches, _ = run_cli(itp_cli.main, [
         "-s", scene, "-m", tmp / "p8_itp_cli_out", "--n_views", 3,
-        "--ckpt_path", "random:0", "--focal_avg", "--niter",
+        "--ckpt_path", tmp / RANDOM0_PTH, "--focal_avg", "--niter",
         ITP_ALIGN_ITERS])
     seconds["cli.init_test_pose"] = secs
     if any(launches.values()):
@@ -1965,7 +2015,7 @@ def stage_tools(oracle: Path, tmp: Path, dev, smi: str):
     rc, secs, stage_s = run_tool(run_infer_cli.main, [
         "--data", data, "--out", tmp / "p8_infer_out", "--scenes", "scene",
         "--n_views", 3, "--iterations", INFER_TRAIN_ITERS, "--ckpt_path",
-        "random:0"])
+        tmp / RANDOM0_PTH])
     seconds["cli.run_infer"] = secs
     out = tmp / "p8_infer_out" / "scene" / "3_views"
     if rc != 0:
@@ -2160,17 +2210,18 @@ def timed_matches(preds, dev):
     return out, ms
 
 
-def timed_alignment(tag, preds, matches, dev):
-    """sparse_global_alignment with its defaults (300 + 300), plus runs of
-    0 + 0 and 300 + 0 iterations that time the set-up and the coarse
-    phase; prints the times. -> the 300 + 300 result."""
+def timed_alignment(tag, preds, matches, dev, n=SPARSE_ITERS):
+    """sparse_global_alignment with n + n iterations (its defaults: 300 +
+    300), plus runs of 0 + 0 and n + 0 iterations that time the set-up
+    and the coarse phase; prints the times. -> (the n + n result, coarse
+    and fine ms per Adam iteration)."""
     import torch
 
     from instantsplat_tpu_torch.init.sparse_align import (
         sparse_global_alignment)
 
     secs = {}
-    for n1, n2 in ((0, 0), (SPARSE_ITERS, 0), (SPARSE_ITERS, SPARSE_ITERS)):
+    for n1, n2 in ((0, 0), (n, 0), (n, n)):
         torch.cuda.synchronize()
         t0 = time.time()
         res = sparse_global_alignment(preds, matches=matches,
@@ -2179,15 +2230,14 @@ def timed_alignment(tag, preds, matches, dev):
         torch.cuda.synchronize()
         secs[(n1, n2)] = time.time() - t0
     setup = secs[(0, 0)]
-    coarse = (secs[(SPARSE_ITERS, 0)] - setup) / SPARSE_ITERS * 1e3
-    fine = (secs[(SPARSE_ITERS, SPARSE_ITERS)] - secs[(SPARSE_ITERS, 0)]) \
-        / SPARSE_ITERS * 1e3
-    log(f"{tag}: sparse_global_alignment {SPARSE_ITERS} + {SPARSE_ITERS} "
-        f"iterations in {secs[(SPARSE_ITERS, SPARSE_ITERS)]:.2f} s: set-up "
+    coarse = (secs[(n, 0)] - setup) / n * 1e3
+    fine = (secs[(n, n)] - secs[(n, 0)]) / n * 1e3
+    log(f"{tag}: sparse_global_alignment {n} + {n} "
+        f"iterations in {secs[(n, n)]:.2f} s: set-up "
         f"{setup:.2f} s, coarse {coarse:.2f} ms per Adam iteration, fine "
         f"{fine:.2f} ms per Adam iteration (host clock); final loss "
         f"{res.loss:.6e}")
-    return res
+    return res, coarse, fine
 
 
 def mast3r_crop_infer(model):
@@ -2260,7 +2310,7 @@ def stage_sparse(params, cams, mast3r, tmp: Path, dev, smi: str):
         "edge " + ", ".join(str(len(m[0])) for m in matches) + "; ms per "
         "edge " + ", ".join(f"{v:.1f}" for v in ms) + " (first edge "
         "includes the warm-up)")
-    res = timed_alignment("oracle", preds, matches, dev)
+    res, _, _ = timed_alignment("oracle", preds, matches, dev)
     rot, t_err = relative_pose_error(res.c2w, c2w_gt)
     log(f"oracle sparse alignment against the truth: relative rotation "
         f"{rot:.5f} rad (limit 0.05), translation {t_err:.5f} of the scene "
@@ -2310,7 +2360,8 @@ def stage_sparse(params, cams, mast3r, tmp: Path, dev, smi: str):
     log(f"MASt3R random:0 bf16 matching: matches per edge "
         + ", ".join(str(len(m[0])) for m in m_matches) + "; ms per edge "
         + ", ".join(f"{v:.1f}" for v in m_ms))
-    m_res = timed_alignment("MASt3R random:0", pairs16, m_matches, dev)
+    m_res, _, _ = timed_alignment("MASt3R random:0", pairs16, m_matches,
+                                  dev, P13_SPARSE_ITERS)
     n_cells = (-(-H // SPARSE_SUBSAMPLE), -(-W // SPARSE_SUBSAMPLE))
     if not (m_res.c2w.shape == (3, 4, 4) and m_res.scales.shape == (3,)
             and m_res.focals.shape == (3,)
@@ -2775,7 +2826,7 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
     kw = dict(PRETRAIN_HYPER, loss_fn=losses.mast3r_finetune_loss,
               accum_iter=PRETRAIN_ACCUM, total_steps=PRETRAIN_STEPS)
 
-    # ---- (e) float32 speed: 5 steps without the loader's threads ----
+    # ---- (e) float32 speed: 8 steps without the loader's threads ----
     # the CLI's shape and schedule on five fixed batches, from the weights
     # the CLI starts from (the card's copy of (b)) and a fresh optimizer
     # state, as the CLI starts
@@ -2784,7 +2835,7 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
     init, step, _ = trainer.make_dp_train_step(cfg, compute_dtype=None, **kw)
     state = init(card_model)
     f32_ms, f32_loss = [], []
-    for b in fixed:
+    for b in fixed + fixed[:3]:  # WARMUP eager, a capture, 4 replays
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, met = step(state, b)
@@ -2792,25 +2843,22 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
         f32_ms.append((time.perf_counter() - t) * 1e3)
         f32_loss.append(float(met["loss"]))
     f32_peak = torch.cuda.max_memory_allocated() / 1e9
-    del state, card_model
+    del state, card_model, step, init  # the step's graph and its pool
     torch.cuda.empty_cache()
-    med = statistics.median(f32_ms[1:])
-    log(f"pretrain fp32 (TF32 off) without the loader [{smi}]: 5 steps of "
-        f"{n_pairs} pairs at {PRETRAIN_W}x{PRETRAIN_H}, ms "
-        + ", ".join(f"{v:.1f}" for v in f32_ms)
-        + f" (median of the last 4 {med:.1f}; {med / n_pairs:.1f} ms a "
-        f"pair; {train_flops / (med / 1e3) / 1e12:.1f} TFLOP/s); losses "
+    med = statistics.median(f32_ms[-4:])
+    log(f"pretrain fp32 (TF32 off) without the loader [{smi}]: "
+        f"{len(f32_ms)} steps of {n_pairs} pairs at {PRETRAIN_W}x"
+        f"{PRETRAIN_H}, ms " + ", ".join(f"{v:.1f}" for v in f32_ms)
+        + f" (median of the last 4, replays: {med:.1f}; "
+        f"{med / n_pairs:.1f} ms a pair; "
+        f"{train_flops / (med / 1e3) / 1e12:.1f} TFLOP/s); losses "
         + ", ".join(f"{v:.4g}" for v in f32_loss)
         + f"; peak card memory {f32_peak:.2f} GB")
     if not np.isfinite(f32_loss).all():
         fail("pretrain fp32: a non-finite loss")
 
-    # ---- (c) cli.pretrain, bf16, timed; (d) the resume to 35 ----
-    pth = tmp / "random0.pth"
-    t0 = time.time()
-    torch.save(host_model.state_dict(), pth)
-    log(f"pretrain [{smi}]: phase 7's random:0 weights saved as {pth.name} "
-        f"({pth.stat().st_size / 1e9:.2f} GB) in {time.time() - t0:.1f} s")
+    # ---- (c) cli.pretrain, bf16, timed; (d) the resume to 25 ----
+    pth = tmp / RANDOM0_PTH  # phase 7's random:0 weights
     out_dir = tmp / "pretrain_out"
     spec = (f"PosedMultiViewDataset('{root}', resolution=[({PRETRAIN_W}, "
             f"{PRETRAIN_H})], n_corres={PRETRAIN_CORRES}, "
@@ -2832,7 +2880,7 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         cli_ms, cli_loss = rec["ms"][:], rec["loss"][:]
         marks, save_s = rec["marks"][:], rec["save"][:]
-        scales["step 30"] = pointmap_scale(model, fixed[0])
+        scales[f"step {PRETRAIN_STEPS}"] = pointmap_scale(model, fixed[0])
         t0 = time.time()
         _, hist = trainer.train_loop(
             model, cfg, iter(fixed[:1] * PRETRAIN_STEPS + fixed),
@@ -2840,7 +2888,7 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
             output_dir=str(out_dir), compute_dtype=torch.bfloat16, **kw)
         torch.cuda.synchronize()
         resume_s = time.time() - t0
-    scales["step 35"] = pointmap_scale(model, fixed[0])
+    scales[f"step {PRETRAIN_RESUME_TO}"] = pointmap_scale(model, fixed[0])
     if len(cli_ms) != PRETRAIN_STEPS or len(save_s) != 1:
         fail(f"pretrain: the CLI ran {len(cli_ms)} timed optimizer steps and "
              f"{len(save_s)} saves, expected {PRETRAIN_STEPS} and 1")
@@ -2853,9 +2901,10 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
              f"{PRETRAIN_PROFILED}")
 
     ckpt = out_dir / "checkpoint-last.npz"
-    tail = cli_ms[-20:]
+    tail = cli_ms[-PRETRAIN_TIMED:]
     med = statistics.median(tail)
-    loop_ms = [(b - a) * 1e3 for a, b in zip(marks[-21:-1], marks[-20:])]
+    loop_ms = [(b - a) * 1e3 for a, b in zip(marks[-PRETRAIN_TIMED - 1:-1],
+                                              marks[-PRETRAIN_TIMED:])]
     hist_line = [ln for ln in text.splitlines() if "done" in ln]
     log(f"pretrain cli.pretrain [{smi}]: {PRETRAIN_STEPS} steps of "
         f"{n_pairs} pairs ({PRETRAIN_BATCH} x accum {PRETRAIN_ACCUM}) "
@@ -2864,9 +2913,11 @@ def stage_pretrain(host_model, tmp: Path, dev, smi: str):
         f"steps {PRETRAIN_PROFILED[0]}-{PRETRAIN_PROFILED[-1]} profiled: "
         f"{secs:.1f} s in all; "
         f"{hist_line[0] if hist_line else 'no done line'}")
-    log(f"pretrain step ms (synchronised, last 20) [{smi}]: median "
+    log(f"pretrain step ms (synchronised, last {PRETRAIN_TIMED}) [{smi}]: "
+        f"median "
         f"{med:.2f}, min {min(tail):.2f}, max {max(tail):.2f}; first "
-        f"{cli_ms[0]:.1f}; loop ms per step (data included, last 20) "
+        f"{cli_ms[0]:.1f}; loop ms per step (data included, last "
+        f"{PRETRAIN_TIMED}) "
         f"median {statistics.median(loop_ms):.2f}, max {max(loop_ms):.2f}")
     log(f"pretrain FLOP (from the config, 2 x MACs of matmuls and "
         f"convs): forward of one {PRETRAIN_W}x{PRETRAIN_H} pair "
@@ -3183,7 +3234,7 @@ def parallel_rank(tmp: Path):
 
     # ---- float32 DDP / FSDP steps of the full-width MASt3R ----
     cfg = mast3r.MASt3RConfig()
-    host = mast3r.build_trainable(str(tmp / "random0.pth"), cfg,
+    host = mast3r.build_trainable(str(tmp / RANDOM0_PTH), cfg,
                                   device="cpu")
     batches = [tt.synthetic_batch(cfg, batch=2, h=P11_PRETRAIN_HW,
                                   w=P11_PRETRAIN_HW, seed=s)
@@ -3510,7 +3561,7 @@ def eager_training():
 def api_profile(fn, iters: int):
     """fn() (`iters` iterations, ends synchronised) under torch.profiler.
     -> dict(api: {runtime API name: calls}, kernels: {device kernel name:
-    launches}, busy_ms, wall_ms)."""
+    launches}, kernel_ms: {device kernel name: ms}, busy_ms, wall_ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3522,14 +3573,17 @@ def api_profile(fn, iters: int):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    api, kernels, busy = {}, {}, 0.0
+    api, kernels, kernel_ms, busy = {}, {}, {}, 0.0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             kernels[e.name] = kernels.get(e.name, 0) + 1
-            busy += e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            kernel_ms[e.name] = kernel_ms.get(e.name, 0.0) + ms
+            busy += ms
         elif e.name.startswith(("cuda", "cu")):
             api[e.name] = api.get(e.name, 0) + 1
-    return dict(api=api, kernels=kernels, busy_ms=busy, wall_ms=wall_ms)
+    return dict(api=api, kernels=kernels, kernel_ms=kernel_ms, busy_ms=busy,
+                wall_ms=wall_ms)
 
 
 def launch_calls(api) -> int:
@@ -3551,14 +3605,17 @@ def synced_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict, dev,
-                 smi: str):
+def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict,
+                 host_model, dev, smi: str):
     """Phase 13: stage 2, the pose refiner and the aligner as replays of
     captured CUDA graphs (the default) against their eager loops, in one
-    call, on phase 4's scene and its first dense run's model. `captured`:
-    phase 4's runs by backend (history, steady ms/iter, graph replays);
-    `explicit`: phase 4's tiled and binned strings. -> launches {KR,
-    K1..K6} of the phase."""
+    call, on phase 4's scene and its first dense run's model; then (g)
+    sparse alignment's two phases, (h) the full-width pre-training step
+    from `host_model` (phase 7's float32 random:0 MASt3R on the host) and
+    (i) train_joint and align over a one-rank NCCL mesh, each captured
+    against eager. `captured`: phase 4's runs by backend (history, steady
+    ms/iter, graph replays); `explicit`: phase 4's tiled and binned
+    strings. -> launches {KR, K1..K6} of the phase."""
     import torch
 
     from instantsplat_tpu_torch.init.aligner import GlobalAligner
@@ -3628,7 +3685,7 @@ def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict, dev,
         state.step = snap[3]
 
     s0 = snapshot()
-    n_prof, n_time = 20, 50
+    n_prof, n_time = 10, 30  # cut from 20, 50 for the time limit
     for kind, backend in (("dense", "pallas"), ("tiled", explicit["tiled"]),
                           ("binned", explicit["binned"])):
         driver._guard = driver._OverflowGuard()
@@ -3782,12 +3839,473 @@ def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict, dev,
         f"iteration, eager {align_ms['eager']:.3f} "
         f"({align_ms['eager'] / align_ms['captured']:.2f}x; the first "
         f"{WARMUP} steps and the capture included)")
+    # ---- (g)-(i) the loops of slice 13 ------------------------------------
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.time()
+    graphs_sparse(dev, smi)
+    log(f"phase 13 (g) [{smi}]: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    graphs_pretrain(host_model, tmp, dev, smi)
+    log(f"phase 13 (h) [{smi}]: {time.time() - t0:.1f} s")
+    for k, kern in kernels.items():
+        phase[k] += kern.launches
+    torch.cuda.empty_cache()
+    for k, n in graphs_mesh(tmp, smi).items():
+        phase[k] += n
     log(f"phase 13 [{smi}]: {time.time() - t_phase:.1f} s; launches {phase}")
     if not (phase["KR"] and phase["K1"] and phase["K2"] and phase["K3"]
             and phase["K5"]):
         fail(f"phase 13: a kernel of the captured paths never launched "
              f"({phase})")
     return phase
+
+
+@contextlib.contextmanager
+def loop_profiles(k: int):
+    """Each StepLoop.run of more than WARMUP + 1 + k steps runs its first
+    WARMUP + 1 steps (the warm-up and the capture, or eager steps), then
+    k steps under api_profile (replays of the graph, or eager steps),
+    then the rest. Never a capture under the profiler. Yields {loop name:
+    [api_profile of k steps, ...]}."""
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    out: dict = {}
+    real = StepLoop.run
+
+    def run(self, n):
+        if n <= WARMUP + 1 + k:
+            return real(self, n)
+        res = real(self, WARMUP + 1)
+        out.setdefault(self.name, []).append(
+            api_profile(lambda: real(self, k), k))
+        rest = n - WARMUP - 1 - k
+        return real(self, rest) if rest else res
+
+    StepLoop.run = run
+    try:
+        yield out
+    finally:
+        StepLoop.run = real
+
+
+def loop_line(tag, smi, unit, ms, profs, peak, diff, limit, what):
+    """Print one captured-against-eager comparison and check it: `ms`,
+    `profs` ({captured, eager}: api_profile dicts of k iterations with
+    "k" added), `peak` ({captured, eager}: GB), `diff` the largest
+    difference between the two runs' results (`what`) and its `limit`.
+    Fails unless the captured run made one cudaGraphLaunch per
+    iteration (the profiler saw the runtime's calls) and diff <= limit."""
+    calls, graphs, busy, share = {}, {}, {}, {}
+    for mode, prof in profs.items():
+        k = prof["k"]
+        calls[mode] = launch_calls(prof["api"]) / k
+        graphs[mode] = prof["api"].get("cudaGraphLaunch", 0) / k
+        busy[mode] = prof["busy_ms"] / k
+        share[mode] = 100 * prof["busy_ms"] / prof["wall_ms"]
+    log(f"phase 13 {tag} [{smi}]: ms per {unit} captured {ms['captured']:.3f}"
+        f", eager {ms['eager']:.3f} ({ms['eager'] / ms['captured']:.2f}x); "
+        f"kernel launch API calls per {unit} captured "
+        f"{calls['captured']:.1f}, eager {calls['eager']:.1f}; "
+        f"cudaGraphLaunch per {unit} captured {graphs['captured']:.2f}, "
+        f"eager {graphs['eager']:.2f}; device busy per {unit} captured "
+        f"{busy['captured']:.3f} ms = {share['captured']:.1f}% of the wall, "
+        f"eager {busy['eager']:.3f} ms = {share['eager']:.1f}% (profiler "
+        f"on, {profs['captured']['k']} and {profs['eager']['k']} {unit}s); "
+        f"peak memory captured {peak['captured']:.2f} GB, eager "
+        f"{peak['eager']:.2f} GB; {what}: {diff:.3e} (limit {limit:g})")
+    if profs["captured"]["api"] and graphs["captured"] != 1:
+        fail(f"phase 13 {tag}: {graphs['captured']} cudaGraphLaunch calls "
+             f"per {unit} captured")
+    if not profs["captured"]["kernels"]:
+        log(f"phase 13 {tag}: torch.profiler recorded no device events "
+            "inside the replays (busy share not measured)")
+    top = sorted(profs["captured"]["kernel_ms"].items(),
+                 key=lambda kv: -kv[1])[:4]
+    if top:
+        log(f"phase 13 {tag}: the most device time per {unit} captured: "
+            + "; ".join(f"{ms / profs['captured']['k']:.3f} ms "
+                        f"{100 * ms / profs['captured']['busy_ms']:.1f}% "
+                        f"{name[:70]}" for name, ms in top))
+    if not diff <= limit:
+        fail(f"phase 13 {tag}: captured and eager differ by {diff:.3e} "
+             f"({what}; limit {limit:g})")
+
+
+def graphs_sparse(dev, smi):
+    """Phase 13 (g): both sparse-alignment phases captured against eager
+    on phase 9's oracle inputs (P13_SPARSE_ITERS + P13_SPARSE_ITERS
+    iterations): coarse and fine ms per Adam iteration, launches, busy
+    share, peak memory, the results' c2w and loss."""
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.init.sparse_align import (
+        sparse_global_alignment)
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    preds, _, _ = sparse_oracle()
+    matches, _ = timed_matches(preds, dev)
+    res, ms, profs, peak = {}, {}, {}, {}
+    for mode in ("captured", "eager"):
+        ctx = eager_loops() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            before = StepLoop.replays
+            torch.cuda.reset_peak_memory_stats()
+            res[mode], coarse, fine = timed_alignment(
+                f"phase 13 sparse {mode} [{smi}]", preds, matches, dev,
+                P13_SPARSE_ITERS)
+            peak[mode] = torch.cuda.max_memory_allocated() / 1e9
+            ms[mode] = dict(coarse=coarse, fine=fine)
+            replays = StepLoop.replays - before
+            want = 3 * (P13_SPARSE_ITERS - WARMUP) if mode == "captured" \
+                else 0
+            if replays != want:
+                fail(f"phase 13 sparse {mode}: {replays} replays, expected "
+                     f"{want}")
+            n = WARMUP + 1 + P13_PROFILED + 1  # each phase profiled inside
+            with loop_profiles(P13_PROFILED) as got:
+                sparse_global_alignment(preds, matches=matches,
+                                        subsample=SPARSE_SUBSAMPLE,
+                                        niter1=n, niter2=n, device=dev)
+            profs[mode] = {name: dict(runs[0], k=P13_PROFILED)
+                           for name, runs in got.items()}
+    d_c2w = float(np.abs(res["captured"].c2w - res["eager"].c2w).max())
+    d_loss = abs(res["captured"].loss - res["eager"].loss) / abs(
+        res["eager"].loss)
+    for phase in ("coarse", "fine"):
+        name = f"sparse_align {phase}"
+        loop_line(f"sparse alignment {phase} phase ({P13_SPARSE_ITERS} "
+                  f"iterations, 3 oracle views at {W}x{H})", smi,
+                  "iteration", {m: ms[m][phase] for m in ms},
+                  {m: profs[m][name] for m in profs}, peak, d_c2w,
+                  SPARSE_POSE_ATOL, f"c2w max |d| after {P13_SPARSE_ITERS}"
+                  f" + {P13_SPARSE_ITERS}")
+    log(f"phase 13 sparse alignment: final loss captured "
+        f"{res['captured'].loss:.6e}, eager {res['eager'].loss:.6e} "
+        f"(relative {d_loss:.3e})")
+
+
+def pretrain_one_step(host_model, fixed, kw, dev, smi):
+    """Phase 13 (h), float32: one replay of the pre-training StepLoop
+    against eager steps from the same state. The WARMUP eager steps and
+    the capture's step come first, so the compared step is a replay at a
+    later row of the step table than the capture's, on another batch (a
+    scalar or an input frozen into the graph at the capture would show).
+    The parameters and the first moments after it, by relative L2 over
+    all of them, must lie within twice the spread of two eager steps from
+    the same state (+ 1e-6); the replays' metrics["lr"] must equal
+    lr_sched(step) in float32 exactly."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.train_dust3r import trainer
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    model = copy.deepcopy(host_model).to(dev).requires_grad_(True)
+    init, step, _ = trainer.make_dp_train_step(host_model.cfg,
+                                               compute_dtype=None, **kw)
+    lr_sched = trainer.cosine_warmup_schedule(
+        kw["base_lr"], kw["min_lr"], kw["warmup_steps"], kw["total_steps"])
+    state = init(model)
+    for i in range(WARMUP + 1):  # the warm-up, then the capture's step
+        state, _ = step(state, fixed[i % len(fixed)])
+    batch = fixed[(WARMUP + 1) % len(fixed)]
+
+    def snapshot(groups=("params", "m")):
+        return {g: {k: t.detach().clone() for k, t in state[g].items()}
+                for g in groups}
+
+    s0, at = snapshot(("params", "m", "v")), state["step"]
+
+    def restore():
+        with torch.no_grad():
+            for g, ts in s0.items():
+                for k, t in state[g].items():
+                    t.copy_(ts[k])
+        state["step"] = at
+
+    def rel(a, b):  # relative L2 over every tensor of the group
+        ks = list(b)
+        num = torch.stack([torch.linalg.vector_norm(
+            (a[k].detach() - b[k]).double()) for k in ks]).norm()
+        den = torch.stack([torch.linalg.vector_norm(b[k].double())
+                           for k in ks]).norm()
+        return float(num / den.clamp(min=1e-300))
+
+    before = StepLoop.replays
+    state, met = step(state, batch)
+    lrs = [(state["step"], float(met["lr"]))]
+    one = snapshot()
+    with eager_loops():
+        restore()
+        state, _ = step(state, batch)
+        eager = snapshot()
+        restore()
+        state, _ = step(state, batch)
+        spread = {g: rel(state[g], eager[g]) for g in ("params", "m")}
+    diff = {g: rel(one[g], eager[g]) for g in ("params", "m")}
+    del s0, one, eager
+    for i in range(3):  # replays at later rows
+        state, met = step(state, fixed[i % len(fixed)])
+        lrs.append((state["step"], float(met["lr"])))
+    replays = StepLoop.replays - before
+    del state, step, init, model
+    torch.cuda.empty_cache()
+    log(f"phase 13 pretrain fp32 one step [{smi}]: the replay of step "
+        f"{at + 1} against eager steps from the same state, relative L2: "
+        f"parameters {diff['params']:.3e} (eager spread "
+        f"{spread['params']:.3e}), first moments {diff['m']:.3e} (eager "
+        f"spread {spread['m']:.3e}); replays' lr "
+        + ", ".join(f"step {s}: {lr:.9g}" for s, lr in lrs))
+    if replays != 4:
+        fail(f"phase 13 pretrain fp32: {replays} replays, expected 4")
+    for g, label in (("params", "parameters"), ("m", "first moments")):
+        if not diff[g] <= 2 * spread[g] + 1e-6:
+            fail(f"phase 13 pretrain fp32: a replayed step's {label} differ "
+                 f"from an eager step's by {diff[g]:.3e} relative L2 (eager "
+                 f"spread {spread[g]:.3e})")
+    for s, lr in lrs:
+        if lr != float(np.float32(lr_sched(s))):
+            fail(f"phase 13 pretrain fp32: the replay of step {s} used lr "
+                 f"{lr!r}, lr_sched gives {float(np.float32(lr_sched(s)))!r}")
+
+
+def graphs_pretrain(host_model, tmp: Path, dev, smi):
+    """Phase 13 (h): the full-width bf16 pre-training step (phase 10's
+    shape: 2 x accum 2 pairs at 512x384, mast3r_finetune) captured
+    against eager from the same weights and batches: WARMUP eager steps,
+    then P13_PRETRAIN_CAPTURED captured steps (replays) and
+    P13_PRETRAIN_EAGER eager ones, each synchronised;
+    P13_PRETRAIN_PROFILED more of each under torch.profiler; the two loss
+    curves over their common steps."""
+    import copy
+    import itertools
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.train_dust3r import losses, trainer
+    from instantsplat_tpu_torch.train_dust3r.datasets import (
+        PosedMultiViewDataset)
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    ds = PosedMultiViewDataset(tmp / "pretrain",
+                               resolution=[(PRETRAIN_W, PRETRAIN_H)],
+                               n_corres=PRETRAIN_CORRES,
+                               transform="color_jitter")
+    loader = ds.batches(PRETRAIN_BATCH, seed=11, n_epochs=PRETRAIN_EPOCHS)
+    fixed = [trainer.stack_microbatches(list(
+        itertools.islice(loader, PRETRAIN_ACCUM))) for _ in range(5)]
+    kw = dict(PRETRAIN_HYPER, loss_fn=losses.mast3r_finetune_loss,
+              accum_iter=PRETRAIN_ACCUM, total_steps=PRETRAIN_STEPS)
+    pretrain_one_step(host_model, fixed, kw, dev, smi)
+    model = copy.deepcopy(host_model).to(dev).requires_grad_(True)
+    start = [p.detach().clone() for p in model.parameters()]
+    curves, ms, profs, peak = {}, {}, {}, {}
+    counts = dict(captured=P13_PRETRAIN_CAPTURED, eager=P13_PRETRAIN_EAGER)
+    for mode, n in counts.items():
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), start):
+                p.copy_(p0)
+        ctx = eager_loops() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            init, step, _ = trainer.make_dp_train_step(
+                host_model.cfg, compute_dtype=torch.bfloat16, **kw)
+            state = init(model)
+            loss, times = [], []
+            before = StepLoop.replays
+            for i in range(WARMUP + n):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, met = step(state, fixed[i % len(fixed)])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                loss.append(float(met["loss"]))
+            replays = StepLoop.replays - before
+
+            def more():
+                nonlocal state
+                for j in range(P13_PRETRAIN_PROFILED):
+                    state, _ = step(state, fixed[j % len(fixed)])
+
+            prof = api_profile(more, P13_PRETRAIN_PROFILED)
+            peak[mode] = torch.cuda.max_memory_allocated() / 1e9
+            want = n if mode == "captured" else 0
+            if replays != want:
+                fail(f"phase 13 pretrain {mode}: {replays} replays, "
+                     f"expected {want}")
+            del state, step, init
+        curves[mode] = loss
+        ms[mode] = statistics.median(times[WARMUP + 1:] or times[WARMUP:])
+        profs[mode] = dict(prof, k=P13_PRETRAIN_PROFILED)
+        log(f"phase 13 pretrain {mode} [{smi}]: step ms "
+            + ", ".join(f"{v:.1f}" for v in times) + "; losses "
+            + ", ".join(f"{v:.6g}" for v in loss))
+    common = min(len(c) for c in curves.values())
+    rel = [abs(a - b) / abs(b) for a, b in zip(curves["captured"][:common],
+                                                curves["eager"][:common])]
+    if not np.isfinite(curves["captured"]).all():
+        fail("phase 13 pretrain: a non-finite captured loss")
+    loop_line(f"pretrain bf16 step ({PRETRAIN_BATCH} x accum "
+              f"{PRETRAIN_ACCUM} pairs at {PRETRAIN_W}x{PRETRAIN_H}; median "
+              f"of the last {P13_PRETRAIN_CAPTURED - 1} captured and "
+              f"{P13_PRETRAIN_EAGER - 1} eager steps)", smi, "step", ms,
+              profs, peak, max(rel), LOSS_RTOL,
+              f"loss curves' max relative difference over {common} steps "
+              f"(over steps 1-{WARMUP}, eager in both runs: "
+              f"{max(rel[:WARMUP]):.3e})")
+    del model, start
+    torch.cuda.empty_cache()
+
+
+def mesh_rank(tmp: Path, device: str = "cuda"):
+    """Phase 13 (i), in a child process started by `stage_graphs`: a
+    one-rank NCCL group; train_joint(mesh=) on phase 4's scene and align
+    (mesh=) on phase 7's oracle pairs, captured (their collectives in the
+    graphs) against eager (StepLoops as Python loops). Writes the lines'
+    numbers and the kernels' launch counts to <tmp>/phase13.json."""
+    import os
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from instantsplat_tpu_torch.init.aligner import GlobalAligner
+    from instantsplat_tpu_torch.init.pairs import make_pair_indices
+    from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS
+    from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
+    from instantsplat_tpu_torch.parallel import initialize_runtime, make_mesh
+    from instantsplat_tpu_torch.parallel.runtime import STORE_ENV
+    from instantsplat_tpu_torch.pipelines.trainer import (TrainerConfig,
+                                                          train_joint)
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_runtime(device,
+                       init_method=f"file://{os.environ[STORE_ENV]}",
+                       world_size=1, rank=0)
+    mesh = make_mesh(1)
+    dev = torch.device(device)
+    kernels = kernel_table()
+    for k in kernels.values():
+        k.launches = 0
+    scene = tmp / "scene"
+    opt_cfg = OptimizationConfig(pp_optimizer=True, optim_pose=True)
+    blocks = P13_TRAIN_ITERS // P13_LOG_EVERY
+    preds = oracle_pointmap_fn(TRAIN_FRAMES, 0.9 * W)(
+        None, make_pair_indices(3, "complete", symmetrize=True))
+    curves, ms, profs, peak, aligned = {}, {}, {}, {}, {}
+    p0, cams = initial_params(scene, dev)
+
+    def fresh():
+        return p0.replace(**{f: getattr(p0, f).clone()
+                             for f in PARAM_FIELDS})
+
+    for mode in ("captured", "eager"):
+        ctx = eager_loops() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            # train_joint: timed between the ends of blocks 2 and `blocks`
+            params = fresh()
+            torch.cuda.reset_peak_memory_stats()
+            before = StepLoop.replays
+            _, _, hist = train_joint(
+                params, cams, opt_cfg=opt_cfg, mesh=mesh,
+                trainer_cfg=TrainerConfig(iterations=P13_TRAIN_ITERS,
+                                          backend="pallas",
+                                          log_every=P13_LOG_EVERY))
+            replays = StepLoop.replays - before
+            peak[f"train {mode}"] = torch.cuda.max_memory_allocated() / 1e9
+            want = P13_TRAIN_ITERS - WARMUP if mode == "captured" else 0
+            if replays != want:
+                fail(f"phase 13 mesh train_joint {mode}: {replays} "
+                     f"replays, expected {want}")
+            curves[mode] = [m["loss"] for _, m in hist]
+            el = [m["elapsed_s"] for _, m in hist]
+            ms[f"train {mode}"] = (el[-1] - el[1]) * 1e3 / (
+                (blocks - 2) * P13_LOG_EVERY)
+            params = fresh()
+            n = WARMUP + 1 + 2 * P13_PROFILED  # one block, profiled inside
+            with loop_profiles(P13_PROFILED) as got:
+                train_joint(params, cams, opt_cfg=opt_cfg, mesh=mesh,
+                            trainer_cfg=TrainerConfig(
+                                iterations=n, backend="pallas",
+                                log_every=n))
+            profs[f"train {mode}"] = dict(got["make_train_scan"][0],
+                                          k=P13_PROFILED)
+            del params
+            # align: (the P13_ALIGN_ITERS run) - (the 0-iteration run)
+            secs = {}
+            for n in (0, P13_ALIGN_ITERS):
+                al = GlobalAligner(preds, device=dev)
+                al.init_mst(focal_avg=True)
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                before = StepLoop.replays
+                t0 = time.perf_counter()
+                loss = al.align(niter=n, mesh=mesh)
+                secs[n] = time.perf_counter() - t0
+                if n and mode == "captured" and \
+                        StepLoop.replays - before != n - WARMUP:
+                    fail(f"phase 13 mesh align: {StepLoop.replays - before}"
+                         f" replays for {n} iterations")
+            peak[f"align {mode}"] = torch.cuda.max_memory_allocated() / 1e9
+            aligned[mode] = (loss, al.get_im_poses().tolist())
+            ms[f"align {mode}"] = (secs[P13_ALIGN_ITERS] - secs[0]) * 1e3 / \
+                P13_ALIGN_ITERS
+            al = GlobalAligner(preds, device=dev)
+            al.init_mst(focal_avg=True)
+            with loop_profiles(P13_PROFILED) as got:
+                al.align(niter=WARMUP + 1 + P13_PROFILED + 1, mesh=mesh)
+            profs[f"align {mode}"] = dict(got["align"][0], k=P13_PROFILED)
+    (tmp / "phase13.json").write_text(json.dumps(dict(
+        curves=curves, ms=ms, profs=profs, peak=peak,
+        aligned=aligned,
+        launches={name: k.launches for name, k in kernels.items()})))
+    torch.distributed.destroy_process_group()
+
+
+def graphs_mesh(tmp: Path, smi):
+    """Phase 13 (i): `mesh_rank` in a child process; its lines checked
+    and printed here. -> the child's kernel launches."""
+    import numpy as np
+
+    from instantsplat_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    try:
+        launch.spawn("chip_smoke", ["--phase13-rank", str(tmp)], 1,
+                     timeout=P11_LIMIT_S, cwd=str(REPO))
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 13 (i): {e}")
+    got = json.loads((tmp / "phase13.json").read_text())
+    c, e = got["curves"]["captured"], got["curves"]["eager"]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(c, e))
+    loop_line(f"train_joint over a one-rank NCCL mesh ({P13_TRAIN_ITERS} "
+              f"iterations in blocks of {P13_LOG_EVERY}, pallas)", smi,
+              "iteration", {m: got["ms"][f"train {m}"] for m in ("captured",
+                                                                "eager")},
+              {m: got["profs"][f"train {m}"] for m in ("captured", "eager")},
+              {m: got["peak"][f"train {m}"] for m in ("captured", "eager")},
+              diff, LOSS_RTOL, "loss curves' max relative difference")
+    (lc, pc), (le, pe) = got["aligned"]["captured"], got["aligned"]["eager"]
+    d_pose = float(np.abs(np.asarray(pc) - np.asarray(pe)).max())
+    loop_line(f"align over a one-rank NCCL mesh ({P13_ALIGN_ITERS} "
+              "iterations, 6 oracle pairs)", smi, "iteration",
+              {m: got["ms"][f"align {m}"] for m in ("captured", "eager")},
+              {m: got["profs"][f"align {m}"] for m in ("captured", "eager")},
+              {m: got["peak"][f"align {m}"] for m in ("captured", "eager")},
+              d_pose, ALIGN_POSE_ATOL,
+              f"final loss relative {abs(lc - le) / le:.3e}, poses max |d|")
+    log(f"phase 13 (i) [{smi}]: {time.time() - t0:.1f} s in the child "
+        f"process; its launches {got['launches']}")
+    return got["launches"]
 
 
 def to_cuda_rows(opt, iterations, first_step: int, dev):
@@ -3803,6 +4321,9 @@ def main():
 
     if sys.argv[1:2] == ["--phase11-rank"]:  # phase 11's child process
         parallel_rank(Path(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--phase13-rank"]:  # phase 13's child process
+        mesh_rank(Path(sys.argv[2]))
         return
     # ---- phase 1: card ---------------------------------------------------
     t_start = time.time()
@@ -3988,7 +4509,6 @@ def main():
         # ---- phase 10: MASt3R pre-training at full width -----------------
         log(f"{time.time() - t_start:.0f} s since the start")
         phase10 = stage_pretrain(host_model, Path(tmp), dev, smi)
-        del host_model
 
         # ---- phase 11: the multi-device layer ----------------------------
         log(f"{time.time() - t_start:.0f} s since the start")
@@ -4001,8 +4521,9 @@ def main():
         # ---- phase 13: the device-resident loops -------------------------
         log(f"{time.time() - t_start:.0f} s since the start")
         phase13 = stage_graphs(scene, Path(tmp), captured, {
-            kind: backend for kind, (backend, _) in explicit.items()}, dev,
-            smi)
+            kind: backend for kind, (backend, _) in explicit.items()},
+            host_model, dev, smi)
+        del host_model
         for row in rows:
             row["launches_phase8"] = phase8[row["name"].split()[0]]
             row["launches_phase9"] = phase9[row["name"].split()[0]]

@@ -37,7 +37,7 @@ the global sum, still divided by the global counts, and the gradients
 are summed over the ranks before every identical Adam step. On the card
 the backward of the per-edge gathers `world[ei]` adds with atomics, so
 the card's result is tolerance-equal to the CPU's, not bit-equal. With a
-mesh the steps run eagerly (their gradient all-reduce is not captured).
+mesh the captured step holds the gradient all-reduce (NCCL).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ from instantsplat_tpu_torch import resolve_device
 from instantsplat_tpu_torch.init import geometry as G
 from instantsplat_tpu_torch.init import pnp
 from instantsplat_tpu_torch.utils import transforms as T
-from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, to_device
+from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, StepTable
 from instantsplat_tpu_torch.utils.transforms import (qvec_to_rotmat,
                                                      rotmat_to_qvec)
 
@@ -493,11 +493,10 @@ class GlobalAligner:
                 table[it, 0] = f32(lr) + (f32(lr_min) - f32(lr)) * t
             table[it, 1] = f32(1) - f32(beta1) ** f32(it + 1)
             table[it, 2] = f32(1) - f32(beta2) ** f32(it + 1)
-        table = to_device(table, dev)
-        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        table = StepTable(table, dev)
 
         def step():
-            cur_lr, bc1, bc2 = table.index_select(0, counter)[0]
+            cur_lr, bc1, bc2 = table.row()
             grads = torch.autograd.grad(self._loss(params, buffers),
                                         list(params.values()))
             if groups is not None:
@@ -509,11 +508,11 @@ class GlobalAligner:
                     if trainable[k]:
                         p.sub_(cur_lr * (m[k] / bc1) / (
                             torch.sqrt(v[k] / bc2) + eps))
-                counter.add_(1)
+                table.advance()
 
-        # JAX's fori_loop blocks: on a card, replays of one captured step;
-        # with a mesh the all-reduce keeps the steps eager
-        StepLoop(step, dev, "align", capture=mesh is None).run(niter)
+        # JAX's fori_loop blocks: on a card, replays of one captured step,
+        # with a mesh its all-reduce too
+        StepLoop(step, dev, "align", groups=groups).run(niter)
         with torch.no_grad():
             final_loss = self._loss(params, buffers)
             if groups is not None:

@@ -13,11 +13,14 @@ instantsplat_tpu/init/sparse_align.py, MASt3R's sparse_ga.py).
 
 The host half (matching glue, crop selection, the MST) is the JAX
 package's numpy, copied with every tie-break. The two phases are PyTorch
-loops on `device` with JAX's exact Adam: betas 0.9/0.9, eps 1e-8, the bias
+loops on `device` (on a card replays of one captured CUDA graph of the
+step, utils/cuda_graphs.StepLoop, as JAX jits each phase's fori_loop)
+with JAX's exact Adam: betas 0.9/0.9, eps 1e-8, the bias
 correction 1 - 0.9^(t+1) in float32 for both moments, the cosine schedule
 lr_min + (lr - lr_min)(1 + cos(pi t / n)) / 2, the factor
-`depth_lr_scale` on the depth leaf's update, and zeroed gradients (not a
-skipped update) for the leaves a phase freezes. Poses are a kinematic
+`depth_lr_scale` on the depth leaf's update; a leaf a phase freezes
+keeps its value (JAX zeroes its gradient: its moments stay 0 and its
+update is exactly 0). Poses are a kinematic
 chain over the match-strength MST (`kinematic_chain`), composed in the
 host's static traversal order. `jnp.clip` and `jnp.maximum` split the
 gradient at a tie and `torch.clamp` does not, so the clamps are
@@ -37,6 +40,7 @@ from instantsplat_tpu_torch import resolve_device
 from instantsplat_tpu_torch.init import geometry as G
 from instantsplat_tpu_torch.ops.matching import fast_reciprocal_nns
 from instantsplat_tpu_torch.utils import transforms as T
+from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, StepTable
 
 
 def extract_matches(preds, subsample=8, device="cuda"):
@@ -523,40 +527,15 @@ def sparse_global_alignment(
     # the UPDATE (a per-leaf lr factor)
     lr_fac = dict(pose=1.0, log_focal=1.0, pp=1.0, log_dscale=depth_lr_scale)
 
-    def run(p, loss_fn, fine: bool, niter: int, lr: float):
-        frozen = set() if fine else {"log_focal", "pp"}
-        if not fine or not opt_depth:
-            frozen.add("log_dscale")  # core_depth trains in the fine phase
-        m = {k: torch.zeros_like(x) for k, x in p.items()}
-        vv = {k: torch.zeros_like(x) for k, x in p.items()}
-        names = list(p)
-        for it in range(niter):
-            # the schedule and the bias correction in float32, as JAX's
-            # traced loop computes them
-            tt = _f32(float(it))
-            cur = _f32(lr_min) + _f32(lr - lr_min) * (
-                1 + torch.cos(_f32(math.pi) * tt / niter)) / 2
-            bc1 = (1 - _f32(0.9) ** (tt + 1)).item()
-            leaves = [p[k].requires_grad_(True) for k in names]
-            grads = torch.autograd.grad(loss_fn(p), leaves,
-                                        allow_unused=True)
-            with torch.no_grad():
-                for k, g in zip(names, grads):
-                    if g is None or k in frozen:
-                        g = torch.zeros_like(p[k])
-                    m[k] = 0.9 * m[k] + 0.1 * g
-                    vv[k] = 0.9 * vv[k] + 0.1 * g * g
-                    step = (_f32(lr_fac[k]) * cur).item()
-                    p[k] = (p[k].detach() - step * (m[k] / bc1)
-                            / (torch.sqrt(vv[k] / bc1) + 1e-8))
-        with torch.no_grad():
-            return p, float(loss_fn(p))
-
-    final = np.nan
-    if niter1:
-        params, final = run(params, loss_coarse, False, niter1, lr1)
-    if niter2:
-        params, final = run(params, loss_fine, True, niter2, lr2)
+    final = None
+    if niter1:  # coarse: poses and scales only (sparse_ga.py:432-439)
+        final = _adam_phase(params, loss_coarse, ("pose",), niter1, lr1,
+                            lr_min, lr_fac, dev, "sparse_align coarse")
+    if niter2:  # core_depth trains only here (sparse_ga.py:440-453)
+        trainable = ("pose", "log_focal", "pp") + (
+            ("log_dscale",) if opt_depth else ())
+        final = _adam_phase(params, loss_fine, trainable, niter2, lr2,
+                            lr_min, lr_fac, dev, "sparse_align fine")
 
     with torch.no_grad():
         R_abs, t_abs, s_abs, f_abs, _ = decode(params)
@@ -572,4 +551,57 @@ def sparse_global_alignment(
     if opt_depth and niter2:
         dsc_out = params["log_dscale"].cpu().numpy().astype(
             np.float64).reshape(v, n_cells // wa, wa)
-    return SparseGAResult(c2w, scales, focals_out, float(final), dsc_out)
+    return SparseGAResult(c2w, scales, focals_out,
+                          np.nan if final is None else float(final), dsc_out)
+
+
+def _phase_rows(niter: int, lr: float, lr_min: float, facs) -> torch.Tensor:
+    """[niter, 1 + len(facs)] float32: each iteration's bias correction
+    1 - 0.9^(t+1) and each leaf's step size fac * (the cosine rate), as
+    JAX's traced loop computes them in float32 (0-dim float32 ops)."""
+    rows = []
+    for it in range(niter):
+        tt = _f32(float(it))
+        cur = _f32(lr_min) + _f32(lr - lr_min) * (
+            1 + torch.cos(_f32(math.pi) * tt / niter)) / 2
+        bc1 = 1 - _f32(0.9) ** (tt + 1)
+        rows.append(torch.stack([bc1] + [_f32(f) * cur for f in facs]))
+    return torch.stack(rows)
+
+
+def _adam_phase(p: dict, loss_fn, trainable, niter: int, lr: float,
+                lr_min: float, lr_fac: dict, device, name: str):
+    """One Adam phase over the leaves `trainable` of `p` (JAX's jitted
+    fori_loop): the parameters and moments are updated in place, the rate
+    and the bias correction come from a device table by a device step
+    counter, so on a card the step is one captured CUDA graph replayed
+    `niter` times (utils/cuda_graphs.StepLoop). A leaf the phase freezes
+    takes no step: with JAX's zeroed gradient its moments stay 0 and its
+    update is exactly 0. -> the phase's final loss, a 0-dim device tensor
+    (read by the caller once)."""
+    names = [k for k in p if k in trainable]
+    m = {k: torch.zeros_like(p[k]) for k in names}
+    v = {k: torch.zeros_like(p[k]) for k in names}
+    table = StepTable(_phase_rows(niter, lr, lr_min,
+                                  [lr_fac[k] for k in names]), device)
+    leaves = [p[k].requires_grad_(True) for k in names]
+
+    def step():
+        row = table.row()
+        grads = torch.autograd.grad(loss_fn(p), leaves, allow_unused=True)
+        with torch.no_grad():
+            bc1 = row[0]
+            for j, (k, g) in enumerate(zip(names, grads)):
+                if g is None:
+                    g = torch.zeros_like(p[k])
+                m[k].mul_(0.9).add_(0.1 * g)
+                v[k].mul_(0.9).add_(0.1 * g * g)
+                p[k].sub_(row[1 + j] * (m[k] / bc1)
+                          / (torch.sqrt(v[k] / bc1) + 1e-8))
+            table.advance()
+
+    StepLoop(step, device, name).run(niter)
+    for x in leaves:
+        x.requires_grad_(False)
+    with torch.no_grad():
+        return loss_fn(p)

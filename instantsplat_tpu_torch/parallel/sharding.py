@@ -34,7 +34,8 @@ ranks' "replicated" parameters could drift apart.
 
 Host-side decisions are shared: under a capacity backend the overflow
 guard reads every rank's overflow flag, all-reduced with MAX, so all
-ranks demote together.
+ranks demote together (inside a block of steps the flag is recorded on
+the device and read at the block's end, render/driver.py).
 """
 
 from __future__ import annotations
@@ -223,9 +224,14 @@ def merge_depth_slices(accs, tfins, bg):
     (rgb [h, w, 3], alpha [h, w], depth [h, w]). Slice i is weighted by
     the product of every earlier slice's transmittance:
     (C_a, T_a) o (C_b, T_b) = (C_a + T_a C_b, T_a T_b)."""
-    prefix = torch.cumprod(torch.cat([torch.ones_like(tfins[:1]),
-                                      tfins[:-1]]), dim=0)
-    total = torch.prod(tfins, dim=0)
+    # running products by multiplication: the backwards of cumprod and
+    # prod read on the host whether an input is zero, which a captured
+    # step cannot do
+    prefix = [torch.ones_like(tfins[0])]
+    for t in tfins:
+        prefix.append(prefix[-1] * t)
+    total = prefix.pop()
+    prefix = torch.stack(prefix)
     acc = (prefix[:, None] * accs).sum(0)
     rgb = acc[:3].permute(1, 2, 0) + total[..., None] * bg
     return rgb, 1.0 - total, acc[3]
@@ -261,19 +267,23 @@ def _shared_backend(packed, backend: str, rows: int, width: int, group):
     key = ("sharded", int(packed.shape[0]), rows, width, cf, dl)
 
     def overflow():
+        """Any rank's block lists overflow: a device flag."""
         p = packed.detach()
         flag = binned.bin_overflow(p[:, :2], p[:, 2:5], p[:, 5],
                                    driver.splat_valid(p), rows, width, cf,
                                    dl).to(torch.int32).reshape(1)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-        return bool(flag.item())
+        return flag[0] > 0
 
-    if driver._guard.newly_demoted(key, overflow):
+    def warn():
         driver._log.warning(
             "sharded binned rasterizer: a row block's lists overflow for "
             "N=%d %dx%d; this signature runs the dense kernels on every "
             "rank from now on", key[1], rows, width)
-    return "pallas" if key in driver._guard.demoted else backend
+
+    # inside a block of steps the guard records the flag on the device and
+    # reads it at the block's end
+    return "pallas" if driver._guard.check(key, overflow, warn) else backend
 
 
 def sharded_render(gaussians, camera, mesh, pose=None, bg=None,

@@ -19,17 +19,18 @@ one captured CUDA graph of the step (utils/cuda_graphs.StepLoop), which
 gathers its view by a device index and reads its learning rates and bias
 corrections from a device table, so the host makes one graph launch per
 iteration and reads the metrics at the block's end; on the CPU the same
-step runs in a Python loop. The eager loop (`train_step` per iteration)
-runs where JAX's does: with a viewer, on mixed-shape scenes, with
-scan=False; and with a mesh, whose collectives are not captured. Left out
-as a TPU workaround: the dispatch governor that bounded each scanned block
-under the TPU runtime's execution deadline (JAX's dispatch_budget_s,
+step runs in a Python loop. With a mesh the step's collectives (the
+sharded render's gathers, the gradient all-reduce) are captured with it.
+The eager loop (`train_step` per iteration) runs where JAX's does: with a
+viewer, on mixed-shape scenes, with scan=False. Left out as a TPU
+workaround: the dispatch governor that bounded each scanned block under
+the TPU runtime's execution deadline (JAX's dispatch_budget_s,
 _fit_block). With a mesh (`TrainerConfig.n_devices`, or `mesh=`), every
 render is sharded over the ranks (parallel/sharding.py); rank 0 draws the
-view order and broadcasts it, and `auto` resolves to the dense kernels,
-as in JAX. With a `viewer` (render/network_gui.NetworkGUI), every
-iteration first answers at most one pending viewer request
-(_serve_viewer).
+view order and broadcasts it (a block's view table, on the device), and
+`auto` resolves to the dense kernels, as in JAX. With a `viewer`
+(render/network_gui.NetworkGUI), every iteration first answers at most
+one pending viewer request (_serve_viewer).
 """
 
 from __future__ import annotations
@@ -75,8 +76,8 @@ class TrainerConfig:
     log_every: int = 100
     # run log_every iterations as one block (make_train_scan): on a card,
     # replays of one captured CUDA graph, the metrics read at the block's
-    # end. Off with a live viewer (per-iteration polling), on mixed-shape
-    # scenes and with a mesh, which step eagerly
+    # end. Off with a live viewer (per-iteration polling) and on
+    # mixed-shape scenes, which step eagerly
     scan: bool = True
     # renders sharded over an n_devices 1-D mesh (parallel/sharding.py):
     # 0/None/1 = one device; -1 = every rank of the group. shard_axis:
@@ -152,18 +153,22 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
     view by a device step counter from the block's view ids, and its
     Adam factors from the block's `optimizer.step_scalars` table; both are
     copied to the device once per block, so the step holds no host value.
-    On a card (without a mesh) the first iterations run eagerly on a side
-    stream, one step is captured into a CUDA graph, and every later
-    iteration is a replay (utils/cuda_graphs.StepLoop). A graph is kept
-    per (active_sh, the demoted capacity signatures for a capacity
-    backend, the tensors' storage), all in one memory pool (`pool`, or
-    one of this block function's own). On the CPU, or with a mesh, the
-    same step runs in a Python loop.
+    On a card the first iterations run eagerly on a side stream, one step
+    is captured into a CUDA graph, and every later iteration is a replay
+    (utils/cuda_graphs.StepLoop). A graph is kept per (active_sh, the
+    demoted capacity signatures for a capacity backend, the tensors'
+    storage), all in one memory pool (`pool`, or one of this block
+    function's own). On the CPU the same step runs in a Python loop.
+    With a mesh the graph holds the sharded render's collectives (NCCL),
+    and the block's view ids are rank 0's, broadcast on the device once a
+    block.
     `active_sh` is static per block: callers split blocks at SH-ramp
     boundaries, as train_joint does."""
     dev = bg.device
-    if dev.type == "cuda" and mesh is None and pool is None:
+    if dev.type == "cuda" and pool is None:
         pool = torch.cuda.graph_pool_handle()
+    groups = () if mesh is None else [mesh.get_group(name) for name in
+                                      mesh.mesh_dim_names]
     blocks: dict = {}
 
     def statics(params, opt_state, k: int, active_sh: int):
@@ -195,7 +200,7 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
                 return metrics
 
             blocks[key] = (StepLoop(step, dev, "make_train_scan", pool,
-                                    capture=mesh is None), bufs)
+                                    groups=groups), bufs)
         loop, bufs = blocks[key]
         if bufs.cap < k:  # room for 1024 iterations (32 KB) at least
             bufs.cap = cap = 1 << max(k - 1, 1023).bit_length()
@@ -212,6 +217,12 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
             iterations, opt_state.step + 1), dev))
         bufs.views[:k].copy_(to_device(np.asarray(view_ids), dev,
                                        torch.int64))
+        if mesh is not None:  # rank 0's view order on every rank
+            import torch.distributed as dist
+
+            dist.broadcast(bufs.views[:k],
+                           dist.get_global_rank(groups[0], 0),
+                           group=groups[0])
         bufs.counter.zero_()
         metrics = loop.run(k)
         opt_state.step += k
@@ -328,8 +339,8 @@ def train_joint(
 
     Iterations run in blocks that end at log boundaries and never cross an
     SH-ramp boundary, as the JAX loop's scan blocks do. With
-    trainer_cfg.scan, no viewer and one image shape (JAX's condition) and
-    no mesh, each block is one call of a make_train_scan
+    trainer_cfg.scan, no viewer and one image shape (JAX's condition),
+    with or without a mesh, each block is one call of a make_train_scan
     block function of its backend (on a card: graph replays); otherwise
     train_step runs per iteration. Both read the same Adam table, so the
     two give the same bits on the CPU. With
@@ -369,22 +380,19 @@ def train_joint(
     rng = np.random.RandomState(trainer_cfg.seed)
     queue: list[int] = []
 
+    log_every = trainer_cfg.log_every
+    mixed_shapes = len({(c.height, c.width) for c in cameras}) > 1
+    use_scan = trainer_cfg.scan and viewer is None and not mixed_shapes
+
     def next_view() -> int:
         nonlocal queue
         if not queue:
             queue = list(rng.permutation(len(cameras)))
-            if mesh is not None:  # rank 0's draw, on every rank
+            if mesh is not None and not use_scan:  # rank 0's draw on every
+                # rank; a block broadcasts its view table instead
                 queue = runtime.broadcast_object(queue, group)
         return int(queue.pop())
 
-    log_every = trainer_cfg.log_every
-    mixed_shapes = len({(c.height, c.width) for c in cameras}) > 1
-    use_scan = trainer_cfg.scan and viewer is None and not mixed_shapes
-    if use_scan and mesh is not None:
-        use_scan = False
-        if runtime.is_main_process():
-            print("[train] mesh: iterations step eagerly (captured blocks "
-                  "over collectives are not supported)", flush=True)
     if use_scan:
         stacked = stack_cameras(cameras)
         pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
@@ -398,7 +406,8 @@ def train_joint(
             if name not in block_fns:
                 block_fns[name] = make_train_scan(
                     optimizer, stacked, bg, opt_cfg.lambda_dssim, name,
-                    trainer_cfg.chunk, pool=pool)
+                    trainer_cfg.chunk, mesh=mesh,
+                    shard_axis=trainer_cfg.shard_axis, pool=pool)
             return block_fns[name]
     cur_name = trainer_cfg.backend
     alt_name: Optional[str] = None

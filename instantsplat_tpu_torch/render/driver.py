@@ -128,33 +128,39 @@ class _OverflowGuard:
         self.calls: dict = {}
         self.demoted: set = set()
         self.flags: Optional[dict] = None
+        self.warnings: dict = {}  # signature -> warn() on its demotion
 
-    def newly_demoted(self, key, overflow_fn) -> bool:
-        """Count a call of signature `key`; on its first call and every
-        _BINNED_CHECK_EVERY-th after, unless already demoted, read
-        overflow_fn() and demote `key` when it is True."""
+    def check(self, key, overflow_fn, warn) -> bool:
+        """Whether signature `key` runs the dense kernels. Outside a block:
+        count the call; on its first call and every _BINNED_CHECK_EVERY-th
+        after, read overflow_fn() and, when it is True, demote `key` with
+        warn(). Inside a block (recording_overflow): OR overflow_fn()'s
+        device flag into the block's flag for `key`, with no host read;
+        the block's end reads it and demotes with warn() (settle_overflow).
+        A block's first calls run eagerly (StepLoop's warm-up), which is
+        where a flag is made; a captured step writes into it on every
+        replay."""
+        if key in self.demoted:
+            return True
+        if self.flags is not None:
+            overflow = overflow_fn()
+            flag = self.flags.get(key)
+            if flag is not None:
+                flag.logical_or_(overflow)
+            elif overflow.is_cuda and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"overflow guard: signature {key} first "
+                                   "seen while a step was being captured")
+            else:
+                self.flags[key] = overflow.clone()
+            self.warnings[key] = warn
+            return False
         n = self.calls.get(key, 0)
         self.calls[key] = n + 1
-        if key in self.demoted or n % _BINNED_CHECK_EVERY != 0:
-            return False
-        if bool(overflow_fn()):
+        if n % _BINNED_CHECK_EVERY == 0 and bool(overflow_fn()):
             self.demoted.add(key)
+            warn()
             return True
         return False
-
-    def record(self, key, overflow: torch.Tensor):
-        """OR a call's overflow flag into the block's flag for `key`, on
-        the device (no host read). A block's first calls run eagerly
-        (StepLoop's warm-up), which is where a flag is made; a captured
-        step writes into it on every replay."""
-        flag = self.flags.get(key)
-        if flag is not None:
-            flag.logical_or_(overflow)
-        elif overflow.is_cuda and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"overflow guard: signature {key} first "
-                               "seen while a step was being captured")
-        else:
-            self.flags[key] = overflow.clone()
 
 
 _guard = _OverflowGuard()
@@ -183,7 +189,7 @@ def settle_overflow(flags: dict) -> bool:
     for key, overflowed in zip(keys, hit):
         if overflowed:
             _guard.demoted.add(key)
-            _warn_demoted(key)
+            _guard.warnings[key]()
     return any(hit)
 
 
@@ -224,10 +230,10 @@ def _binned_backend_or_dense(packed, height: int, width: int,
     lists were found to overflow (port of the JAX driver's guard)."""
     cf, dl = _parse_binned_caps(backend)
     key = _capacity_key(packed, height, width, backend)
-    if _guard.newly_demoted(key, lambda: rasterize_pallas_binned.bin_overflow(
-            *_columns(packed), height, width, cf, dl)):
-        _warn_demoted(key)
-    return "pallas" if key in _guard.demoted else backend
+    dense = _guard.check(key, lambda: rasterize_pallas_binned.bin_overflow(
+        *_columns(packed), height, width, cf, dl),
+        lambda: _warn_demoted(key))
+    return "pallas" if dense else backend
 
 
 def _tiled_backend_or_dense(packed, height: int, width: int,
@@ -235,30 +241,36 @@ def _tiled_backend_or_dense(packed, height: int, width: int,
     """As _binned_backend_or_dense, for the 2-D tiled backend."""
     cf, dy, dx = _parse_tiled_caps(backend)
     key = _capacity_key(packed, height, width, backend)
-    if _guard.newly_demoted(key, lambda: rasterize_pallas_tiled.tile_overflow(
-            *_columns(packed), height, width, cf, dy, dx)):
-        _warn_demoted(key)
-    return "pallas" if key in _guard.demoted else backend
+    dense = _guard.check(key, lambda: rasterize_pallas_tiled.tile_overflow(
+        *_columns(packed), height, width, cf, dy, dx),
+        lambda: _warn_demoted(key))
+    return "pallas" if dense else backend
 
 
 def _recorded_lists(packed, height: int, width: int, backend: str):
     """Inside a block (recording_overflow): the capacity backend's lists,
-    their overflow flag recorded for the block's end. -> (lists, geometry,
-    forward kernel, backward kernel), or None once the signature is
+    their overflow flag recorded for the block's end. -> [lists, geometry,
+    forward kernel, backward kernel], or None once the signature is
     demoted (the dense kernels then run)."""
     key = _capacity_key(packed, height, width, backend)
-    if key in _guard.demoted:
+    built = []
+
+    def lists_overflow():
+        if backend.startswith("pallas-binned"):
+            built.extend(rasterize_pallas_binned.bin_lists(
+                packed, height, width, *_parse_binned_caps(backend)))
+            built.extend((rasterize_pallas_binned.K3,
+                          rasterize_pallas_binned.K4))
+        else:
+            built.extend(rasterize_pallas_tiled.tile_lists(
+                packed, height, width, *_parse_tiled_caps(backend)))
+            built.extend((rasterize_pallas_tiled.K5,
+                          rasterize_pallas_tiled.K6))
+        return built[0].overflow
+
+    if _guard.check(key, lists_overflow, lambda: _warn_demoted(key)):
         return None
-    if backend.startswith("pallas-binned"):
-        lists, geom = rasterize_pallas_binned.bin_lists(
-            packed, height, width, *_parse_binned_caps(backend))
-        kernels = rasterize_pallas_binned.K3, rasterize_pallas_binned.K4
-    else:
-        lists, geom = rasterize_pallas_tiled.tile_lists(
-            packed, height, width, *_parse_tiled_caps(backend))
-        kernels = rasterize_pallas_tiled.K5, rasterize_pallas_tiled.K6
-    _guard.record(key, lists.overflow)
-    return lists, geom, *kernels
+    return built
 
 
 def _sizing_columns(gaussians, pose, camera, scale_modifier):

@@ -28,8 +28,7 @@ from instantsplat_tpu_torch.init.geometry import geotrf
 
 
 def _max(x, c):
-    return torch.maximum(x, torch.as_tensor(c, dtype=x.dtype,
-                                            device=x.device))
+    return torch.maximum(x, x.new_full((), c))
 
 
 def _masked_mean(x, mask, axis=None, eps=1e-8):
@@ -258,13 +257,11 @@ def regr3d_conf_loss(gt1, gt2, pred1, pred2, alpha=0.2, norm_gt=True,
         sky2 = gt2.get("sky_mask")
         if sky1 is not None:
             sky1 = sky1 & ~valid1
-            l1 = torch.where(sky1, torch.as_tensor(
-                sky_loss_value, dtype=l1.dtype, device=l1.device), l1)
+            l1 = torch.where(sky1, l1.new_full((), sky_loss_value), l1)
             valid1 = valid1 | sky1
         if sky2 is not None:
             sky2 = sky2 & ~valid2
-            l2 = torch.where(sky2, torch.as_tensor(
-                sky_loss_value, dtype=l2.dtype, device=l2.device), l2)
+            l2 = torch.where(sky2, l2.new_full((), sky_loss_value), l2)
             valid2 = valid2 | sky2
 
     conf1 = pred1["conf"]

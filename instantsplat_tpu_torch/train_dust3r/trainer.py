@@ -10,6 +10,17 @@ cosine-with-warmup learning rate of that step, decoupled weight decay on
 parameters with ndim >= 2 only) as a handful of `torch._foreach_*`
 launches over all parameters.
 
+JAX jits the whole step: the micro-batch `lax.scan`, the learning rate of
+the step and AdamW. Here the step (every micro-batch's forward and
+backward, the accumulation into static gradient buffers, the data-parallel
+all-reduce, AdamW) is one `utils/cuda_graphs.StepLoop` per batch shape: on
+a card each optimizer step is one replay of a captured CUDA graph, which
+reads the batch from static device buffers (filled from pinned memory
+before the replay) and the step's learning rate and bias corrections from
+a device table by a device step counter; on the CPU the same step runs
+eagerly. FSDP re-allocates the gathered parameters every step and steps
+eagerly.
+
 Mixed precision (`compute_dtype=torch.bfloat16`) is the JAX package's:
 every floating parameter (LayerNorm included) and both images are cast to
 bf16 for the forward and backward (`torch.func.functional_call` on bf16
@@ -54,6 +65,12 @@ import torch
 from instantsplat_tpu_torch import convert
 from instantsplat_tpu_torch.models import mast3r
 from instantsplat_tpu_torch.train_dust3r.losses import regr3d_conf_loss
+from instantsplat_tpu_torch.utils.cuda_graphs import (StaticInputs, StepLoop,
+                                                      StepTable)
+
+# captured step graphs kept at once, one per batch signature (shape and
+# dtype of every leaf); the least recently used goes first
+_MAX_GRAPHS = 4
 
 
 def cosine_warmup_schedule(base_lr, min_lr, warmup_steps, total_steps):
@@ -228,8 +245,10 @@ def _make_objective(cfg, loss_fn, alpha, compute_dtype, dp=None):
 def _adamw(p, g, m, v, decay, lr, bc1, bc2, beta1, beta2, eps,
            weight_decay):
     """One AdamW update of the parameter list p in place: a handful of
-    `torch._foreach_*` launches over all parameters. decay[i]: whether
-    p[i] takes weight decay (matrices and conv kernels)."""
+    `torch._foreach_*` launches over all parameters, JAX's
+    p - lr * (u + wd * p). decay[i]: whether p[i] takes weight decay
+    (matrices and conv kernels). lr, bc1, bc2: numbers or 0-dim tensors on
+    the parameters' device (a captured step's row of its table)."""
     with torch.no_grad():
         torch._foreach_mul_(m, beta1)
         torch._foreach_add_(m, g, alpha=1 - beta1)
@@ -244,7 +263,8 @@ def _adamw(p, g, m, v, decay, lr, bc1, bc2, beta1, beta2, eps,
         if weight_decay and idx:
             torch._foreach_add_([u[i] for i in idx], [p[i] for i in idx],
                                 alpha=weight_decay)
-        torch._foreach_add_(p, u, alpha=-lr)
+        torch._foreach_mul_(u, lr)
+        torch._foreach_sub_(p, u)
 
 
 def make_dp_train_step(
@@ -270,12 +290,18 @@ def make_dp_train_step(
     (state, metrics), updating the masters in place; batch = dict img1 /
     img2 [B,H,W,3], gt1 / gt2 view dicts (losses.regr3d_conf_loss), or
     with accum_iter > 1 the [A, B, ...] stack of `stack_microbatches`.
-    metrics = dict(loss, lr, **details) as 0-d tensors (lr a float).
+    metrics = dict(loss, lr, **details) as 0-d tensors on the device.
+
+    The step is a StepLoop per batch signature (the module docstring): the
+    batch is copied into the loop's static buffers, the device step
+    counter is set from state["step"] when the two differ (a resume, a
+    checkpoint load), and the step runs (on a card a graph replay). The
+    gradients accumulate into static `.grad` buffers that the step zeroes.
 
     mesh: a 1-D DeviceMesh; every rank passes the same global batch and
     gets the same metrics (see the module docstring). fsdp (needs a
     mesh): params / m / v in the state are this rank's flat chunks, and
-    state["dp"] holds the layout."""
+    state["dp"] holds the layout; its steps run eagerly."""
     if fsdp and mesh is None:
         raise ValueError("fsdp=True needs a mesh")
     dp = None if mesh is None else _DataParallel(mesh, fsdp)
@@ -284,6 +310,9 @@ def make_dp_train_step(
     objective = _make_objective(cfg, loss_fn or regr3d_conf_loss, alpha,
                                 compute_dtype, dp)
     eps = 1e-8
+    if fsdp and dp.rank == 0:
+        print("[pretrain] fsdp: optimizer steps run eagerly (the gathered "
+              "parameters are re-allocated every step)", flush=True)
 
     def init_state(model):
         params = dict(model.named_parameters())
@@ -301,11 +330,10 @@ def make_dp_train_step(
                      v={k: torch.zeros_like(p) for k, p in params.items()})
         return state
 
-    def grads(model, batch):
-        """The step's gradients, this rank's part accumulated in .grad
-        over the micro-batches (averaged); -> (loss, details)."""
-        for p in model.parameters():
-            p.grad = None
+    def accumulate(model, batch):
+        """The step's gradients, this rank's part accumulated into each
+        parameter's .grad over the micro-batches (averaged); -> (loss,
+        details)."""
         micro = ([batch] if accum_iter == 1 else
                  [_micro(batch, i) for i in range(accum_iter)])
         loss_acc, det_acc = 0.0, {}
@@ -321,19 +349,10 @@ def make_dp_train_step(
                 det_acc[k] = det_acc.get(k, 0.0) + v.detach() / accum_iter
         return loss_acc, det_acc
 
-    def train_step(state, batch):
-        model = state["module"]
-        if fsdp:
-            dp.gather_params(model, state)
-        dev = next(model.parameters()).device
-        loss, details = grads(model, to_device(batch, dev))
-        step = state["step"] + 1
-        lr = lr_sched(step)
-        t = np.float32(step)
-        bc1 = float(1 - np.float32(beta1) ** t)
-        bc2 = float(1 - np.float32(beta2) ** t)
+    def update(state, model, row):
+        """Reduce the ranks' gradients and take AdamW from `row` (lr, bc1,
+        bc2 of this step)."""
         names = list(state["params"])
-        p = [state["params"][k] for k in names]
         # a parameter the loss does not reach (the local-feature head under
         # regr3d_conf, refinenet4's unused skip unit) has a zero gradient,
         # as in JAX: its moments decay and weight decay still applies
@@ -344,13 +363,100 @@ def make_dp_train_step(
             dp.free_params(model)
         elif dp is not None:
             g = dp.all_reduce(g)
-        _adamw(p, g, [state["m"][k] for k in names],
+        lr, bc1, bc2 = row
+        _adamw([state["params"][k] for k in names], g,
+               [state["m"][k] for k in names],
                [state["v"][k] for k in names], state["decay"], lr, bc1, bc2,
                beta1, beta2, eps, weight_decay)
-        for q in model.parameters():
-            q.grad = None
+        return lr
+
+    def row(step: int):
+        """lr, bc1, bc2 of the 1-based `step` in float32, as JAX's step
+        computes them on the device."""
+        t = np.float32(step)
+        return (lr_sched(step), 1 - np.float32(beta1) ** t,
+                1 - np.float32(beta2) ** t)
+
+    def rows(n):
+        """row() of steps 1..n."""
+        return [row(step) for step in range(1, n + 1)]
+
+    sched: dict = {}  # "table": StepTable of rows(n); "at": its counter
+    loops: dict = {}  # batch signature and storage -> (StepLoop, inputs)
+    pool = []  # the card's graph memory pool, shared by every batch shape
+
+    def table(dev, step: int) -> StepTable:
+        """The device table, with a row for `step` (1-based): a longer one
+        (and new captures) past its end."""
+        tab = sched.get("table")
+        if tab is None or step > len(tab):
+            n = max(total_steps, warmup_steps, 1)
+            while n < step:
+                n *= 2
+            sched["table"] = tab = StepTable(rows(n), dev)
+            sched["at"] = None
+            for loop, _ in loops.values():
+                loop.reset_graph()
+        return tab
+
+    def loop_for(state, batch, dev):
+        model = state["module"]
+        storage = tuple(t.data_ptr() for group in ("params", "m", "v")
+                        for t in state[group].values())
+        key = (StaticInputs.signature(batch), storage)
+        if key in loops:
+            loops[key] = loops.pop(key)  # most recently used last
+            return loops[key]
+        while len(loops) >= _MAX_GRAPHS:  # a stale shape's graph goes
+            del loops[next(iter(loops))]
+        if dev.type == "cuda" and not pool:
+            pool.append(torch.cuda.graph_pool_handle())
+        for q in model.parameters():  # static buffers the step zeroes
+            if q.grad is None:
+                q.grad = torch.zeros_like(q)
+        inputs = StaticInputs(batch, dev)
+        grads = [q.grad for q in model.parameters()]
+
+        def step():
+            torch._foreach_zero_(grads)
+            loss, details = accumulate(model, inputs.tree)
+            tab = sched["table"]
+            lr = update(state, model, tab.row().unbind(0))
+            tab.advance()
+            return dict(loss=loss, lr=lr, **details)
+
+        loops[key] = (StepLoop(step, dev, "pretrain step",
+                               pool[0] if pool else None,
+                               groups=() if dp is None else (dp.group,)),
+                      inputs)
+        return loops[key]
+
+    def train_step(state, batch):
+        model = state["module"]
+        step = state["step"] + 1
+        if fsdp:
+            dp.gather_params(model, state)
+            dev = next(model.parameters()).device
+            for q in model.parameters():
+                q.grad = None
+            loss, details = accumulate(model, to_device(batch, dev))
+            lr = update(state, model, [float(x) for x in row(step)])
+            for q in model.parameters():
+                q.grad = None
+            metrics = dict(loss=loss, lr=torch.full((), lr, device=dev),
+                           **details)
+        else:
+            dev = next(model.parameters()).device
+            tab = table(dev, step)
+            loop, inputs = loop_for(state, batch, dev)
+            inputs.copy_(batch)
+            if sched["at"] != state["step"]:
+                tab.seek(state["step"])
+            # the outputs of a replay are rewritten by the next one
+            metrics = {k: v.clone() for k, v in loop.run(1).items()}
+            sched["at"] = step
         state["step"] = step
-        return state, dict(loss=loss, lr=lr, **details)
+        return state, metrics
 
     return init_state, train_step, to_device
 

@@ -21,6 +21,19 @@ which the tests hold to the eager loops bit for bit.
 The capacity backends' overflow guard (render/driver.py) ORs each call's
 overflow flag into the loop's `flags` while a block runs; the flags are
 read once, at the block's end, where overflowing signatures are demoted.
+
+What the loops share:
+- `StepTable`: a loop's per-step scalars (learning rates, bias
+  corrections, schedule factors) as one float32 device table, read by a
+  device step counter that the step advances;
+- `StaticInputs`: device buffers that a step reads for data that changes
+  from step to step (a pre-training batch); the host copies each step's
+  data into them, from pinned memory and asynchronously, before the step
+  runs or replays;
+- `groups`: the process groups whose collectives a step runs. Captured
+  collectives need NCCL; the warm-up steps run them once before the
+  capture (a communicator is made on its first collective, which a
+  capture cannot hold).
 """
 
 from __future__ import annotations
@@ -32,6 +45,16 @@ import numpy as np
 import torch
 
 WARMUP = 3  # eager steps on a side stream before a loop's first capture
+_SIDE: dict = {}  # device -> the warm-up stream every loop shares
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """One side stream per device for every loop's warm-up: the caching
+    allocator reuses blocks freed on a stream only on that stream, so a
+    new stream per warm-up would allocate anew each time."""
+    if device not in _SIDE:
+        _SIDE[device] = torch.cuda.Stream(device)
+    return _SIDE[device]
 
 
 def to_device(array, device, dtype=torch.float32) -> torch.Tensor:
@@ -42,6 +65,80 @@ def to_device(array, device, dtype=torch.float32) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+class StepTable:
+    """A loop's per-step scalars as one float32 table on the device: row i
+    holds the scalars of the loop's i-th step. A step reads its row by the
+    device counter (`row`) and advances it (`advance`), so no host value is
+    frozen into a captured graph."""
+
+    def __init__(self, rows, device):
+        rows = np.asarray(rows, np.float32)
+        if rows.ndim == 1:  # one scalar a step
+            rows = rows[:, None]
+        self.table = to_device(rows, device)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=device)
+
+    def __len__(self) -> int:
+        return self.table.shape[0]
+
+    def row(self) -> torch.Tensor:
+        """This step's scalars, [k] on the device."""
+        return self.table.index_select(0, self.counter)[0]
+
+    def advance(self):
+        self.counter.add_(1)
+
+    def seek(self, i: int):
+        """Point the counter at row i: a device fill, outside any step."""
+        self.counter.fill_(i)
+
+
+class StaticInputs:
+    """Device buffers for a nested dict of tensors that a step reads; a
+    step never references the host's tensors themselves. `copy_(tree)`
+    writes a new tree of the same signature into them: on a card from
+    pinned memory with non_blocking=True on the current stream, where the
+    loop's replays run after it."""
+
+    def __init__(self, tree, device):
+        self.device = torch.device(device)
+        self.tree = _map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device=self.device), tree)
+
+    @staticmethod
+    def signature(tree) -> tuple:
+        """The shapes and dtypes of a tree's tensors, in path order: the
+        key of the graph that reads them."""
+        out = []
+        _map(lambda t: out.append((tuple(t.shape), t.dtype)), tree)
+        return tuple(out)
+
+    def copy_(self, tree):
+        def put(dst, src):
+            if self.device.type == "cuda" and src.device.type == "cpu":
+                src = src.pin_memory()
+            dst.copy_(src, non_blocking=True)
+
+        _zip(put, self.tree, tree)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
+def _zip(fn, dst, src):
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise KeyError(f"static inputs hold {sorted(dst)}, given "
+                           f"{sorted(src)}")
+        for k in dst:
+            _zip(fn, dst[k], src[k])
+    elif torch.is_tensor(dst):
+        fn(dst, src)
 
 
 def _kernels():
@@ -58,12 +155,21 @@ class StepLoop:
     replays = 0  # cudaGraphLaunch calls of every loop in the process
 
     def __init__(self, step: Callable[[], Any], device, name: str,
-                 pool=None, capture: bool = True):
+                 pool=None, groups=()):
         self.step = step
         self.device = torch.device(device)
-        self.capture = capture
         self.name = name
         self.pool = pool
+        self.groups = [g for g in groups or () if g is not None]
+        if self.captured:
+            import torch.distributed as dist
+
+            for g in self.groups:
+                if dist.get_backend(g) != "nccl":
+                    raise RuntimeError(
+                        f"{name}: a captured step's collectives need a NCCL "
+                        f"group, not {dist.get_backend(g)} (CUDA tensors on "
+                        "a host backend synchronise with the host)")
         self.flags: dict = {}  # overflow guard flags (render/driver.py)
         self.graph = None
         self.warm = 0
@@ -72,9 +178,8 @@ class StepLoop:
 
     @property
     def captured(self) -> bool:
-        """Replays of a graph (on a card, unless capture=False: a step with
-        collectives) or a Python loop."""
-        return self.capture and self.device.type == "cuda"
+        """Replays of a graph (on a card) or a Python loop."""
+        return self.device.type == "cuda"
 
     def reset_graph(self):
         """Drop the graph (its static tensors were re-allocated); the next
@@ -104,7 +209,7 @@ class StepLoop:
         if self.graph is None and self.warm < WARMUP:
             done = min(n, WARMUP - self.warm)
             main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
+            side = _side_stream(self.device)
             side.wait_stream(main)
             with torch.cuda.stream(side):
                 out = self._loop(done)
@@ -125,6 +230,10 @@ class StepLoop:
         for kernel in _kernels():
             kernel.captured = 0
         graph = torch.cuda.CUDAGraph()
+        if self.groups:
+            # the warm-up's collectives finished: the process group's
+            # watchdog then queries no event of theirs during the capture
+            torch.cuda.synchronize(self.device)
         # an unreachable graph freed by the cyclic collector while this one
         # captures would destroy it mid-capture, which invalidates the
         # capture: collect now, and not during the capture

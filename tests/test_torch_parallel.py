@@ -122,6 +122,17 @@ def _jax_inputs():
         jax.random.PRNGKey(4), g.features_dc.shape))
     _put_scene(inp, "t11", init, cams, images=[c.image for c in cams])
     objs["t11"] = (init, cams, None)
+    # the same, non-degenerate (anisotropic scales, random rotations and
+    # opacities), for a comparison of parameters (ROADMAP.md section 3)
+    rng = np.random.default_rng(11)
+    n = init.xyz.shape[0]
+    start = init.replace(
+        scaling=init.scaling + jnp.asarray(rng.normal(size=(n, 3)) * 0.3,
+                                           jnp.float32),
+        rotation=jnp.asarray(rng.normal(size=(n, 4)), jnp.float32),
+        opacity=jnp.asarray(rng.normal(size=(n, 1)), jnp.float32))
+    _put_scene(inp, "t11s", start, cams, images=[c.image for c in cams])
+    objs["t11s"] = (start, cams, None)
     inp["train_iters"] = TRAIN_ITERS
 
     # refine_poses_sharded: test_refine_poses_sharded_matches_sequential's
@@ -247,6 +258,49 @@ def test_train_joint_sharded_matches_jax(ranks, axis):
     assert out[f"train/{axis}/spread"] == 0.0
 
 
+def test_train_joint_mesh_runs_blocks_and_matches_jax_scan(ranks):
+    """train_joint over two ranks in one block of TRAIN_ITERS iterations
+    takes make_train_scan's path (a StepLoop with the mesh's group, whose
+    captured step holds its collectives; no line saying it steps
+    eagerly) and
+    ends where JAX's sharded make_train_scan block ends, from a
+    non-degenerate start: the last loss within 1e-5 relative, every
+    parameter at test_torch_scan's block tolerance (rtol 1e-3, atol 1e-5:
+    Adam turns the packages' different summation orders into parts of a
+    step, 7e-5 on 9 of 600 scales here); both ranks alike, bit for
+    bit."""
+    init, cams, _ = ranks.objs["t11s"]
+    params, _, hist = jtrain_joint(
+        init, cams, opt_cfg=JOptConfig(optim_pose=True),
+        trainer_cfg=JTrainerCfg(iterations=TRAIN_ITERS, backend="pallas",
+                                chunk=64, log_every=TRAIN_ITERS, seed=5,
+                                n_devices=2))
+    out = ranks.out
+    assert "step eagerly" not in str(out["scan/said"])
+    assert list(out["scan/loops"]) == ["make_train_scan:1"]
+    np.testing.assert_allclose(out["scan/loss"], [hist[-1][1]["loss"]],
+                               rtol=1e-5)
+    for f in PARAM_FIELDS:
+        np.testing.assert_allclose(out[f"scan/{f}"],
+                                   np.asarray(getattr(params, f)),
+                                   rtol=1e-3, atol=1e-5, err_msg=f)
+    assert out["scan/spread"] == 0.0
+
+
+def test_train_joint_mesh_block_overflow_demotes(ranks):
+    """An overflowing "pallas-binned:1:2" in train_joint's mesh blocks:
+    the first block renders with the capacity kernels throughout, its end
+    demotes the sharded signature once, with the sharding layer's
+    warning, and the second block renders with the dense kernels."""
+    out = ranks.out
+    assert [s.startswith("('sharded',") for s in out["overflow/demoted"]] \
+        == [True]
+    warned = list(out["overflow/warned"])
+    assert len(warned) == 1 and "row block's lists overflow" in warned[0]
+    assert list(out["overflow/backends"]) == (["pallas-binned:1:2"] * 3
+                                              + ["pallas"] * 3)
+
+
 def test_refine_poses_sharded_matches_jax(ranks):
     g, cams, _ = ranks.objs["r21"]
     inp = np.load(ranks.root / "inputs.npz")
@@ -345,8 +399,12 @@ def _jax_aligner(mesh):
 def test_aligner_sharded_matches_jax(ranks, n):
     """2 ranks shard the 6 edges; 4 ranks shard the 768 pixels (6 % 4 !=
     0): loss and poses equal JAX's sharded and one-device alignment, and
-    every rank ends with the same parameters."""
+    every rank ends with the same parameters. The steps run as one
+    StepLoop with the mesh's group (on a card its all-reduce is
+    captured)."""
     out = ranks.out
+    # the sharded steps as one StepLoop with the mesh's group
+    assert list(out[f"align{n}/loops"]) == ["align:1"]
     for mesh in (jmake_mesh(n), None):
         loss, poses = _jax_aligner(mesh)
         assert abs(float(out[f"align{n}/loss"]) - loss) < 1e-5

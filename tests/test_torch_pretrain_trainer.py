@@ -233,6 +233,44 @@ def test_checkpoint_written_by_the_port_resumes_in_jax(trajectory,
                       what="resumed in JAX ")
 
 
+def test_resume_across_the_warmup_boundary(tmp_path):
+    """warmup 2: a checkpoint after step 1 loaded into a state whose
+    device step counter stands at 4 sets the counter back; steps 2-4 then
+    repeat bit for bit, at JAX's float32 rates on both sides of the
+    warm-up's end (the step reads them from its device table)."""
+    hyper = dict(HYPER, warmup_steps=2, total_steps=6)
+    model = tm.build_trainable("random:0", TINY, device="cpu")
+    init, step, _ = tt.make_dp_train_step(
+        TINY, loss_fn=tl.mast3r_finetune_loss, accum_iter=2, **hyper)
+    state = init(model)
+    batches = [port_batch([batch_np(2 * i), batch_np(2 * i + 1)])
+               for i in range(4)]
+    state, _ = step(state, batches[0])
+    path = tmp_path / "checkpoint-last.npz"
+    tt.save_pretrain_checkpoint(path, state)
+
+    def steps_2_to_4():
+        mets = []
+        for b in batches[1:]:
+            _, met = step(state, b)
+            mets.append({k: float(v) for k, v in met.items()})
+        return mets, {k: p.detach().clone()
+                      for k, p in state["params"].items()}
+
+    first, params = steps_2_to_4()
+    assert state["step"] == 4
+    tt.load_pretrain_checkpoint(path, state)
+    assert state["step"] == 1
+    again, params_again = steps_2_to_4()
+    assert again == first
+    for k in params:
+        assert torch.equal(params_again[k], params[k]), k
+    sched = jt.cosine_warmup_schedule(hyper["base_lr"], hyper["min_lr"],
+                                      2, 6)
+    assert [m["lr"] for m in first] == [
+        float(np.float32(sched(s))) for s in (2, 3, 4)]
+
+
 def test_params_only_checkpoint_load(trajectory, tmp_path):
     """The CLI's --pretrained .npz: parameters only, moments untouched."""
     path = tmp_path / "ck.npz"

@@ -158,6 +158,49 @@ def test_sparse_global_alignment_matches_jax(case):
     assert got.c2w.dtype == np.float64 and np.isfinite(got.loss)
 
 
+def _eager_phase(p, loss_fn, trainable, niter, lr, lr_min, lr_fac, device,
+                 name):
+    """sparse_align's Adam phase as the port ran it before its StepLoop:
+    host float32 scalars read every iteration, every leaf differentiated,
+    the frozen ones' gradients zeroed, each leaf re-bound each step."""
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    m = {k: torch.zeros_like(x) for k, x in p.items()}
+    vv = {k: torch.zeros_like(x) for k, x in p.items()}
+    names = list(p)
+    for it in range(niter):
+        tt = f32(float(it))
+        cur = f32(lr_min) + f32(lr - lr_min) * (
+            1 + torch.cos(f32(np.pi) * tt / niter)) / 2
+        bc1 = (1 - f32(0.9) ** (tt + 1)).item()
+        leaves = [p[k].requires_grad_(True) for k in names]
+        grads = torch.autograd.grad(loss_fn(p), leaves, allow_unused=True)
+        with torch.no_grad():
+            for k, g in zip(names, grads):
+                if g is None or k not in trainable:
+                    g = torch.zeros_like(p[k])
+                m[k] = 0.9 * m[k] + 0.1 * g
+                vv[k] = 0.9 * vv[k] + 0.1 * g * g
+                step = (f32(lr_fac[k]) * cur).item()
+                p[k] = (p[k].detach() - step * (m[k] / bc1)
+                        / (torch.sqrt(vv[k] / bc1) + 1e-8))
+    with torch.no_grad():
+        return loss_fn(p)
+
+
+@pytest.mark.parametrize("case", ["default", "free poses", "depths frozen"])
+def test_step_loop_phases_are_bit_equal_to_eager(case, monkeypatch):
+    """Both phases as StepLoops (device tables, in-place updates, frozen
+    leaves left out) give the eager loop's bits, 30 + 30 iterations."""
+    _, _, _, tp = _scenes()
+    kw = dict(CASES[case], subsample=4, niter1=30, niter2=30, device="cpu")
+    got = sa.sparse_global_alignment(tp, **kw)
+    monkeypatch.setattr(sa, "_adam_phase", _eager_phase)
+    want = sa.sparse_global_alignment(tp, **kw)
+    for field in ("c2w", "scales", "focals", "loss", "depth_scales"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+
+
 def test_recovers_poses():
     """tests/test_aligner.py::test_sparse_global_alignment's gates."""
     c2w_gt, focal, _, tp = _scenes()

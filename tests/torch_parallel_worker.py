@@ -142,6 +142,88 @@ def case_train_joint(inp, mesh):
     return out
 
 
+def case_train_scan(inp, mesh):
+    """train_joint over the mesh in one block of TRAIN_ITERS iterations
+    (make_train_scan's path): the loss, the parameters, what it printed
+    and the StepLoops it ran."""
+    import contextlib
+    import io
+
+    from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
+    from instantsplat_tpu_torch.pipelines import trainer as tr
+
+    made = []
+
+    class Spy(tr.StepLoop):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append((self.name, len(self.groups)))
+
+    real, tr.StepLoop = tr.StepLoop, Spy
+    g, cams = scene(inp, "t11s")
+    said = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(said):
+            _, _, hist = tr.train_joint(
+                g, cams, opt_cfg=OptimizationConfig(optim_pose=True),
+                trainer_cfg=tr.TrainerConfig(
+                    iterations=int(inp["train_iters"]), backend="pallas",
+                    chunk=64, log_every=int(inp["train_iters"]), seed=5,
+                    n_devices=2))
+    finally:
+        tr.StepLoop = real
+    out = {"scan/loss": np.array([m["loss"] for _, m in hist]),
+           "scan/said": np.array(said.getvalue()),
+           "scan/loops": np.array([f"{n}:{k}" for n, k in made]),
+           "scan/spread": np.float64(rank_spread(g.tensors()))}
+    for f in PARAM_FIELDS:
+        out[f"scan/{f}"] = getattr(g, f).numpy()
+    return out
+
+
+def case_block_overflow(inp, mesh):
+    """train_joint over the mesh in two blocks of 3 iterations with an
+    overflowing "pallas-binned:1:2": the first block's end demotes the
+    sharded signature with the sharding layer's warning, and the second
+    block runs the dense kernels. -> the demoted signatures, the
+    warnings and each local render's backend, in order."""
+    import logging
+
+    from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
+    from instantsplat_tpu_torch.parallel import sharding
+    from instantsplat_tpu_torch.pipelines import trainer as tr
+    from instantsplat_tpu_torch.render import driver
+
+    backends, warned = [], []
+    real_rows = sharding.rows_local
+
+    def rows_local(packed, rank, ndev, h, w, backend, chunk):
+        backends.append(backend)
+        return real_rows(packed, rank, ndev, h, w, backend, chunk)
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    guard, driver._guard = driver._guard, driver._OverflowGuard()
+    sharding.rows_local, catch = rows_local, Catch(logging.WARNING)
+    driver._log.addHandler(catch)
+    g, cams = scene(inp, "t11s")
+    try:
+        tr.train_joint(
+            g, cams, opt_cfg=OptimizationConfig(optim_pose=True),
+            trainer_cfg=tr.TrainerConfig(
+                iterations=6, backend="pallas-binned:1:2", chunk=64,
+                log_every=3, seed=5, n_devices=2))
+        demoted = sorted(map(str, driver._guard.demoted))
+    finally:
+        driver._guard, sharding.rows_local = guard, real_rows
+        driver._log.removeHandler(catch)
+    return {"overflow/demoted": np.array(demoted),
+            "overflow/warned": np.array(warned),
+            "overflow/backends": np.array(backends)}
+
+
 def case_refine(inp, mesh):
     from instantsplat_tpu_torch.pipelines.render_pipeline import (
         refine_poses_sharded,
@@ -164,11 +246,25 @@ def case_aligner(inp, mesh):
         edges=[tuple(e) for e in inp["align/edges"].tolist()],
         **{k: inp[f"align/{k}"] for k in ("pred_i", "pred_j", "conf_i",
                                           "conf_j")})
+    from instantsplat_tpu_torch.init import aligner
+
+    made = []
+
+    class Spy(aligner.StepLoop):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(f"{self.name}:{len(self.groups)}")
+
     al = GlobalAligner(preds, device="cpu")
     al.init_mst(focal_avg=True)
-    loss = al.align(niter=int(inp["align/iters"]), mesh=mesh)
+    real, aligner.StepLoop = aligner.StepLoop, Spy
+    try:
+        loss = al.align(niter=int(inp["align/iters"]), mesh=mesh)
+    finally:
+        aligner.StepLoop = real
     n = runtime.axis(mesh)[2]
     return {f"align{n}/loss": np.float64(loss),
+            f"align{n}/loops": np.array(made),
             f"align{n}/poses": al.get_im_poses(),
             f"align{n}/spread": np.float64(rank_spread(
                 [torch.as_tensor(v) for v in al.params.values()]))}
@@ -311,11 +407,40 @@ def case_dp_steps(inp, mesh):
     return out
 
 
+def case_guarded_loops(inp, mesh):
+    """train_joint (one block a shard axis) and align over the mesh with
+    every step after a loop's warm-up refusing host reads
+    (torch_host_reads.guarded_loops). -> {loop name: guarded steps}."""
+    from torch_host_reads import guarded_loops
+
+    from instantsplat_tpu_torch.init.aligner import GlobalAligner
+    from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
+    from instantsplat_tpu_torch.pipelines.trainer import (TrainerConfig,
+                                                          train_joint)
+    from torch_init_cases import aligner_case
+
+    with guarded_loops() as guarded:
+        for axis in ("pixels", "gaussians"):
+            g, cams = scene(inp, "guard")
+            train_joint(g, cams, opt_cfg=OptimizationConfig(
+                pp_optimizer=True, optim_pose=True),
+                trainer_cfg=TrainerConfig(iterations=6, backend="pallas",
+                                          chunk=64, log_every=6,
+                                          n_devices=2, shard_axis=axis))
+        al = GlobalAligner(aligner_case(), device="cpu")
+        al.init_mst(focal_avg=True)
+        al.align(niter=6, mesh=mesh)
+    return {f"guard/{name}": np.int64(n) for name, n in guarded.items()}
+
+
 GROUPS = {
     "renders2": [case_sharded_render, case_gaussian_render, case_train_joint,
-                 case_refine, case_aligner, case_mesh_raises],
+                 case_train_scan, case_block_overflow, case_refine,
+                 case_aligner,
+                 case_mesh_raises],
     "renders4": [case_hybrid, case_aligner, case_mesh_2d, case_mesh_raises],
     "models2": [case_infer_pairs, case_tp, case_dp_steps],
+    "guard2": [case_guarded_loops],
 }
 
 
