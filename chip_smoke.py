@@ -136,7 +136,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kinematic chain, opt_depth) held to tests/test_aligner.py's gates
    (relative rotation < 0.05 rad, translation < 0.15, scales within 0.2
    of 1, focals within 15%); the card's matches of edge (0, 1) equal to
-   the CPU's and 30 + 30 iterations card against CPU (c2w within 1e-3);
+   the CPU's (seeds every 16th pixel, the CPU's time) and 30 + 30
+   iterations card against CPU (c2w within 1e-3);
+   the matcher's 10 fixed-trip rounds on edge 0 launched eagerly and as
+   one CUDA-graph replay (results equal), the round after which the last
+   seed converged and the ms of those rounds alone;
    (2) the same on the MASt3R pairs' descriptors at 100 + 100 (finite
    outputs, shapes);
    (3) refine_matches_coarse_to_fine (maxdim 256) with the oracle field
@@ -192,11 +196,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (loss curves within LOSS_RTOL) and 10 sharded steps under
    torch.profiler (the card's busy share), refine_poses_sharded on phase
    6's twelve test views (30 steps), align(mesh=) on phase 7's oracle
-   pairs (300 iterations), and 5 float32 DDP and FSDP steps of the
-   full-width MASt3R from phase 10's weights (2 pairs at 224x224, losses
-   within 1e-4). train_joint and align over the mesh run captured, their
-   collectives in the graphs (NCCL); FSDP steps eagerly. KR, K1, K2, K3
-   and K4 must launch in the phase.
+   pairs (300 iterations), and 5 float32 one-device, DDP and FSDP steps
+   of the full-width MASt3R from phase 10's weights (2 pairs at 224x224,
+   losses within 1e-4): FSDP's through phase 13 (h)'s one-step check (a
+   replay against two eager steps from the same state; lr equal to
+   lr_sched), three more replays, each whole step under
+   set_sync_debug_mode("error"), and one under torch.profiler (0 kernel
+   launch calls, one cudaGraphLaunch); ms per step, warm-up against
+   replays, and peak memory beside DDP's. train_joint, align and every
+   pre-training step over the mesh run captured, their collectives in the
+   graphs (NCCL). KR, K1, K2, K3 and K4 must launch in the phase.
 12. The structured entry points (the JAX package's drop-ins for
    rasterize.composite) on phase 4's dense model at 512x384, 100k splats:
    prepare_sorted_splats bit-equal to prepare_packed_splats;
@@ -243,8 +252,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (`python -m chip_smoke --phase13-rank <tmp>`) with a one-rank NCCL
    group,
    train_joint over the mesh (60 iterations in blocks of 10; loss curves
-   within LOSS_RTOL) and align over it (100 iterations; poses within
-   ALIGN_POSE_ATOL). Each prints ms per iteration or step, kernel launch
+   within LOSS_RTOL; the captured run with TrainerConfig.profile_dir,
+   whose one trace file must hold block 1's annotate span and K1's and
+   K2's kernels 10 times each, and nothing of block 0) and align over it
+   (100 iterations; poses within ALIGN_POSE_ATOL). Each prints ms per iteration or step, kernel launch
    API calls and cudaGraphLaunch calls per iteration (torch.profiler
    over replays only; one cudaGraphLaunch an iteration is required), the
    busy share, peak memory and the largest difference of the two runs.
@@ -370,6 +381,8 @@ VIEWER_REQUESTS = 5
 # the CLIs of phases 7 and 8, phase 10 and phase 11 load it
 RANDOM0_PTH = "random0.pth"
 SPARSE_SUBSAMPLE = 8
+MATCH_MAX_ITER = 10  # fast_reciprocal_nns's rounds
+CPU_MATCH_SEEDS = 768  # the main path's seeds that the CPU matches too
 SPARSE_ITERS = 300
 SPARSE_COMPARE_ITERS = 30
 SPARSE_POSE_ATOL = 1e-3
@@ -412,7 +425,7 @@ P11_IMAGE_ATOL = 5e-4
 P11_GRAD_RTOL = 1e-3
 P11_TRAIN_ITERS = 30  # cut from 50 for the time limit
 P11_REFINE_ITERS = 30
-P11_PRETRAIN_STEPS = 5  # WARMUP eager, then a capture (one device, DDP)
+P11_PRETRAIN_STEPS = 5  # WARMUP eager, a capture, a replay (each mode)
 P11_PRETRAIN_HW = 224  # phase 10's float32 micro-batch side
 P11_PRETRAIN_RTOL = 1e-4
 P11_LIMIT_S = 600  # the one-rank group's child process
@@ -1152,10 +1165,11 @@ def training_shape(params, cam, dev, path_launches):
         b_ms = graph_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
         f_events_ms = cuda_ms(k_fwd, 20)
         b_events_ms = cuda_ms(lambda: k_bwd(g_acc, gtu, tfin_k, lc_k), 20)
-        # the plain forward without autograd's recording, warmed once;
-        # the plain backward: compare_all's one call on these inputs
+        # the plain forward without autograd's recording (compare_all's
+        # call on these inputs warmed it); the plain backward: that
+        # call's
         with torch.no_grad():
-            plain_f_ms = cuda_ms(lambda: plain(packed), 1, 1)
+            plain_f_ms = cuda_ms(lambda: plain(packed), 1, 0)
         e_f, e_b, plain_b_ms = errs[kind]
         if listed is None:
             scan_bytes = 8 * n + 4 * scan.mask.numel()
@@ -2192,7 +2206,7 @@ def sparse_oracle():
     return preds, world, w2c
 
 
-def timed_matches(preds, dev):
+def timed_matches(preds, dev, subsample=SPARSE_SUBSAMPLE):
     """extract_matches edge by edge -> (matches, ms per edge)."""
     import torch
 
@@ -2203,11 +2217,84 @@ def timed_matches(preds, dev):
         torch.cuda.synchronize()
         t0 = time.time()
         out.append(fast_reciprocal_nns(preds.desc_i[e], preds.desc_j[e],
-                                       subsample=SPARSE_SUBSAMPLE,
-                                       device=dev))
+                                       subsample=subsample, device=dev))
         torch.cuda.synchronize()
         ms.append((time.time() - t0) * 1e3)
     return out, ms
+
+
+def matcher_rounds(preds, e, dev, smi):
+    """The reciprocal matcher's fixed-trip rounds (`_reciprocal_iterate`,
+    MATCH_MAX_ITER of them, no host read between them) on edge e of
+    `preds`, from the main path's seeds (every SPARSE_SUBSAMPLE-th pixel):
+    ms of the rounds launched eagerly; the round after which the last seed
+    converged (the first k with no seed active after k rounds) and the ms
+    of the k rounds an early exit would run; the same rounds captured in
+    one CUDA graph for the edge's shape (static descriptors and seeds) and
+    replayed, whose results must equal the eager rounds'. Then the first
+    CPU_MATCH_SEEDS seeds (the grid's first rows; each seed's rounds are
+    its own) run on the CPU, whose indices and convergence must equal the
+    card's for those seeds."""
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.ops.matching import _reciprocal_iterate
+
+    h, w, d = preds.desc_i[e].shape
+    d1, d2 = (torch.as_tensor(x[e], dtype=torch.float32,
+                              device=dev).reshape(-1, d)
+              for x in (preds.desc_i, preds.desc_j))
+    ys, xs = np.mgrid[SPARSE_SUBSAMPLE // 2:h:SPARSE_SUBSAMPLE,
+                      SPARSE_SUBSAMPLE // 2:w:SPARSE_SUBSAMPLE].reshape(2, -1)
+    seeds = torch.as_tensor(np.unique(xs + w * ys), device=dev)
+
+    def rounds(k=MATCH_MAX_ITER, at=seeds):
+        return _reciprocal_iterate(d1, d2, at, k, 4096)
+
+    want = rounds()
+    eager_ms = synced_ms(lambda: [rounds() for _ in range(5)], 5)
+    last = next((k for k in range(1, MATCH_MAX_ITER + 1)
+                 if not bool(rounds(k)[2].any())), MATCH_MAX_ITER)
+    # the rounds an early exit would have run, without its host reads
+    early_ms = synced_ms(lambda: [rounds(last) for _ in range(5)], 5)
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        rounds()
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rounds()
+    graph.replay()
+    replay_ms = synced_ms(lambda: [graph.replay() for _ in range(5)], 5)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    active = int(want[2].sum())
+    del graph, got
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cpu = _reciprocal_iterate(d1.cpu(), d2.cpu(),
+                              seeds[:CPU_MATCH_SEEDS].cpu(), MATCH_MAX_ITER,
+                              4096)
+    cpu_s = time.time() - t0
+    differ = int(sum((a[:CPU_MATCH_SEEDS].cpu() != b) for a, b
+                     in zip(want, cpu)).ne(0).sum())
+    log(f"matcher rounds on edge {preds.edges[e]} ({len(seeds)} seeds, "
+        f"{h}x{w} descriptors of {d}) [{smi}]: {MATCH_MAX_ITER} fixed-trip "
+        f"rounds {eager_ms:.2f} ms launched eagerly, {replay_ms:.2f} ms as "
+        f"one CUDA-graph replay ({eager_ms / replay_ms:.2f}x); the last seed "
+        f"converged after round {last} ({active} never did), and its "
+        f"{last} rounds alone take {early_ms:.2f} ms; replay results equal "
+        f"the eager rounds': {same}; the first {CPU_MATCH_SEEDS} seeds on "
+        f"the CPU ({cpu_s:.1f} s, {int((~cpu[2]).sum())} matches): seeds "
+        f"whose indices or convergence differ from the card's {differ} "
+        f"(limit 0)")
+    if not same:
+        fail("matcher rounds: the graph replay's results differ from the "
+             "eager rounds'")
+    if differ:
+        fail(f"oracle matching: {differ} seeds differ between the card and "
+             "the CPU")
 
 
 def timed_alignment(tag, preds, matches, dev, n=SPARSE_ITERS):
@@ -2276,7 +2363,6 @@ def stage_sparse(params, cams, mast3r, tmp: Path, dev, smi: str):
 
     from instantsplat_tpu_torch.data import colmap_db, exr, png, scene
     from instantsplat_tpu_torch.init import depth_refine
-    from instantsplat_tpu_torch.init.aligner import PairPrediction
     from instantsplat_tpu_torch.init.sparse_align import (
         refine_matches_coarse_to_fine, sparse_global_alignment)
     from instantsplat_tpu_torch.models import densify
@@ -2306,10 +2392,11 @@ def stage_sparse(params, cams, mast3r, tmp: Path, dev, smi: str):
     preds, world, w2c = sparse_oracle()
     c2w_gt = np.linalg.inv(w2c)
     matches, ms = timed_matches(preds, dev)
-    log(f"oracle matching {W}x{H}, subsample {SPARSE_SUBSAMPLE}: matches per "
-        "edge " + ", ".join(str(len(m[0])) for m in matches) + "; ms per "
-        "edge " + ", ".join(f"{v:.1f}" for v in ms) + " (first edge "
-        "includes the warm-up)")
+    log(f"oracle matching {W}x{H}, subsample {SPARSE_SUBSAMPLE} [{smi}]: "
+        "matches per edge " + ", ".join(str(len(m[0])) for m in matches)
+        + f"; ms per edge ({MATCH_MAX_ITER} fixed-trip rounds) "
+        + ", ".join(f"{v:.1f}" for v in ms) + " (first edge includes the "
+        "warm-up)")
     res, _, _ = timed_alignment("oracle", preds, matches, dev)
     rot, t_err = relative_pose_error(res.c2w, c2w_gt)
     log(f"oracle sparse alignment against the truth: relative rotation "
@@ -2322,34 +2409,24 @@ def stage_sparse(params, cams, mast3r, tmp: Path, dev, smi: str):
     if not (np.abs(res.scales - 1).max() < 0.2
             and np.abs(res.focals / fx - 1).max() < 0.15):
         fail("oracle sparse alignment: scales or focals off the truth")
-    # the CPU matches one edge (11-20 s an edge on an H100 machine's
-    # CPU): the descriptors' distances are exact integers, so every edge
-    # is decided by the same numbers
+    # the CPU matches the main path's seeds of edge (0, 1) in the grid's
+    # first rows (the whole image is the database: 10 fixed-trip rounds
+    # from every 8th pixel take the CPU of an H100 machine ~46 s). The
+    # descriptors' distances are exact integers, so every edge is decided
+    # by the same numbers
     t1 = time.time()
     e01 = preds.edges.index((0, 1))
-    one = PairPrediction(edges=[(0, 1)], pred_i=preds.pred_i[e01:e01 + 1],
-                         pred_j=preds.pred_j[e01:e01 + 1],
-                         conf_i=preds.conf_i[e01:e01 + 1],
-                         conf_j=preds.conf_j[e01:e01 + 1])
-    one.desc_i = preds.desc_i[e01:e01 + 1]
-    one.desc_j = preds.desc_j[e01:e01 + 1]
-    cpu_matches, cpu_ms = timed_matches(one, "cpu")
-    flips = len({tuple(r) for r in np.concatenate(matches[e01], 1)}
-                ^ {tuple(r) for r in np.concatenate(cpu_matches[0], 1)})
+    matcher_rounds(preds, e01, dev, smi)
     both = {dev_: sparse_global_alignment(
         preds, matches=matches, subsample=SPARSE_SUBSAMPLE,
         niter1=SPARSE_COMPARE_ITERS, niter2=SPARSE_COMPARE_ITERS,
         device=dev_) for dev_ in (dev, "cpu")}
     d_c2w = float(np.abs(both[dev].c2w - both["cpu"].c2w).max())
-    log(f"card against the CPU ({time.time() - t1:.1f} s; CPU matching of "
-        f"edge (0, 1) {cpu_ms[0]:.0f} ms): matches in one set and not the "
-        f"other {flips} (limit 0); sparse alignment "
-        f"{SPARSE_COMPARE_ITERS} + {SPARSE_COMPARE_ITERS} iterations c2w "
-        f"max|d| {d_c2w:.3e} (limit {SPARSE_POSE_ATOL:g}), loss "
-        f"{both[dev].loss:.6e} / {both['cpu'].loss:.6e}")
-    if flips:
-        fail(f"oracle matching: {flips} matches differ between the card "
-             "and the CPU")
+    log(f"card against the CPU ({time.time() - t1:.1f} s with the matcher "
+        f"rounds): sparse alignment {SPARSE_COMPARE_ITERS} + "
+        f"{SPARSE_COMPARE_ITERS} iterations c2w max|d| {d_c2w:.3e} (limit "
+        f"{SPARSE_POSE_ATOL:g}), loss {both[dev].loss:.6e} / "
+        f"{both['cpu'].loss:.6e}")
     if not d_c2w <= SPARSE_POSE_ATOL:
         fail("sparse alignment: the card's poses differ from the CPU's")
     part("oracle sparse alignment", t0)
@@ -3097,11 +3174,13 @@ def parallel_rank(tmp: Path):
     refine_poses_sharded on phase 6's test views (P11_REFINE_ITERS steps;
     poses within 1e-3, losses within 1e-3 relative: K2's atomics), align
     (mesh=) on phase 7's oracle pairs (the card-against-CPU limits), and
-    P11_PRETRAIN_STEPS float32 DDP and FSDP steps of the full-width
-    MASt3R from phase 10's random:0 weights (losses within
-    P11_PRETRAIN_RTOL). Writes the kernels' launch counts to
+    P11_PRETRAIN_STEPS float32 one-device, DDP and FSDP steps of the
+    full-width MASt3R from phase 10's random:0 weights (losses within
+    P11_PRETRAIN_RTOL), each a StepLoop (WARMUP eager steps, a capture,
+    replays); FSDP's through `pretrain_one_step` (a replay against two
+    eager steps, its replays free of host syncs, their ms, launch calls
+    and peak memory). Writes the kernels' launch counts to
     <tmp>/phase11.json."""
-    import copy
     import os
 
     import numpy as np
@@ -3123,7 +3202,6 @@ def parallel_rank(tmp: Path):
     from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
     from instantsplat_tpu_torch.pipelines.trainer import (TrainerConfig,
                                                           train_joint)
-    from instantsplat_tpu_torch.train_dust3r import trainer as tt
     from instantsplat_tpu_torch.utils import transforms as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3233,35 +3311,85 @@ def parallel_rank(tmp: Path):
         fail("phase 11 align(mesh=): differs from one device")
 
     # ---- float32 DDP / FSDP steps of the full-width MASt3R ----
-    cfg = mast3r.MASt3RConfig()
-    host = mast3r.build_trainable(str(tmp / RANDOM0_PTH), cfg,
-                                  device="cpu")
+    mesh_pretrain(mast3r.build_trainable(str(tmp / RANDOM0_PTH),
+                                         mast3r.MASt3RConfig(),
+                                         device="cpu"), mesh, dev, smi)
+    (tmp / "phase11.json").write_text(json.dumps(
+        {name: k.launches for name, k in kernels.items()}))
+    torch.distributed.destroy_process_group()
+
+
+def mesh_pretrain(host, mesh, dev, smi):
+    """Phase 11 (b)'s pre-training part: P11_PRETRAIN_STEPS float32 steps
+    of `host` (the full-width MASt3R on the host) at P11_PRETRAIN_HW on
+    one device, DDP and FSDP over `mesh` (one NCCL rank), each a StepLoop
+    (WARMUP eager steps, a capture, replays); FSDP's through
+    `pretrain_one_step` (a replay against two eager steps, later replays
+    free of host syncs, their ms, launch calls and peak memory). The
+    losses of DDP and FSDP within P11_PRETRAIN_RTOL of one device's."""
+    import copy
+
+    import torch
+
+    from instantsplat_tpu_torch.train_dust3r import trainer as tt
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP
+
+    cfg = host.cfg
     batches = [tt.synthetic_batch(cfg, batch=2, h=P11_PRETRAIN_HW,
                                   w=P11_PRETRAIN_HW, seed=s)
                for s in range(P11_PRETRAIN_STEPS)]
-    losses = {}
-    for tag, m, fsdp in (("one device", None, False), ("DDP", mesh, False),
-                         ("FSDP", mesh, True)):
+    losses, ms, peak = {}, {}, {}
+    for tag, m in (("one device", None), ("DDP", mesh)):
         model = copy.deepcopy(host).to(dev)
-        init, step_fn, _ = tt.make_dp_train_step(cfg, mesh=m, fsdp=fsdp)
+        init, step_fn, _ = tt.make_dp_train_step(cfg, mesh=m)
+        torch.cuda.reset_peak_memory_stats()
         state = init(model)
-        ms = []
+        held = torch.cuda.memory_allocated() / 1e9
+        ms[tag] = []
         losses[tag] = []
         for b in batches:
             torch.cuda.synchronize()
             t = time.time()
             state, metrics = step_fn(state, b)
             losses[tag].append(float(metrics["loss"]))
-            ms.append((time.time() - t) * 1e3)
+            ms[tag].append((time.time() - t) * 1e3)
+        peak[tag] = torch.cuda.max_memory_allocated() / 1e9
         log(f"phase 11 pretrain float32 {tag} [{smi}]: {P11_PRETRAIN_STEPS} "
-            f"steps of 2 pairs at {P11_PRETRAIN_HW}x{P11_PRETRAIN_HW}, ms "
-            + ", ".join(f"{v:.1f}" for v in ms) + "; losses "
+            f"steps of 2 pairs at {P11_PRETRAIN_HW}x{P11_PRETRAIN_HW} "
+            f"({WARMUP} eager, a capture, replays), ms "
+            + ", ".join(f"{v:.1f}" for v in ms[tag]) + "; losses "
             + ", ".join(f"{v:.6g}" for v in losses[tag])
-            + "; peak card memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        del model, state
+            + f"; card memory {held:.2f} GB after init_state, peak "
+            f"{peak[tag]:.2f} GB")
+        # the step function holds the state (and its graph) too
+        del model, state, init, step_fn
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+    # FSDP: the float32 one-step check (phase 13 (h)) over the mesh; its
+    # first P11_PRETRAIN_STEPS steps take the batches above
+    fsdp = pretrain_one_step(
+        host, batches, dict(base_lr=1e-4, min_lr=1e-6, warmup_steps=100,
+                            total_steps=10_000, mesh=mesh, fsdp=True),
+        dev, smi, tag="phase 11 pretrain FSDP fp32", strict=True)
+    losses["FSDP"] = fsdp["losses"][:P11_PRETRAIN_STEPS]
+    fm = fsdp["ms"]
+    log(f"phase 11 pretrain float32 FSDP [{smi}]: ms per step: eager "
+        "warm-up " + ", ".join(f"{v:.1f}" for v in fm["warm-up"])
+        + f", the capture's {fm['capture']:.1f}, replays "
+        + ", ".join(f"{v:.1f}" for v in fm["replays"])
+        + f" (each whole step under sync_debug_mode error; DDP's replay "
+        f"{ms['DDP'][-1]:.1f}, one device's {ms['one device'][-1]:.1f}); "
+        f"kernel launch API calls in a replayed step "
+        f"{fsdp['launch_calls']} ({fsdp['graph_launches']} "
+        f"cudaGraphLaunch); card memory {fsdp['peak']['state']:.2f} GB "
+        f"after init_state, peak {fsdp['peak']['eager']:.2f} GB over the "
+        f"eager warm-up, {fsdp['peak']['captured']:.2f} GB over the "
+        f"capture and a replay (DDP {peak['DDP']:.2f}, one device "
+        f"{peak['one device']:.2f}); losses "
+        + ", ".join(f"{v:.6g}" for v in losses["FSDP"]))
+    if fsdp["launch_calls"] or fsdp["graph_launches"] != 1:
+        fail(f"phase 11 pretrain FSDP: a replayed step made "
+             f"{fsdp['launch_calls']} kernel launch calls and "
+             f"{fsdp['graph_launches']} graph launches (expected 0 and 1)")
     for tag in ("DDP", "FSDP"):
         d = max(abs(a - b) / abs(b) for a, b in
                 zip(losses[tag], losses["one device"]))
@@ -3269,9 +3397,6 @@ def parallel_rank(tmp: Path):
             f"one device {d:.3e} (limit {P11_PRETRAIN_RTOL:g})")
         if not d <= P11_PRETRAIN_RTOL:
             fail(f"phase 11 pretrain {tag}: off the one-device step")
-    (tmp / "phase11.json").write_text(json.dumps(
-        {name: k.launches for name, k in kernels.items()}))
-    torch.distributed.destroy_process_group()
 
 
 def stage_parallel(scene: Path, tmp: Path, dev, smi: str):
@@ -3861,6 +3986,38 @@ def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict,
     return phase
 
 
+def read_trace(logdir: Path, blocks: int) -> dict:
+    """The trace that TrainerConfig.profile_dir left in `logdir` (blocks
+    of `blocks` iterations; block 1 traced): its files, size, events,
+    whether block 1's and block 0's `annotate` spans are in it, and its
+    kernel events of KR, K1 and K2."""
+    files = sorted(logdir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        return dict(files=len(files))
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {str(e.get("name", "")) for e in events}
+    return dict(
+        files=1, mb=files[0].stat().st_size / 1e6, events=len(events),
+        block1=f"train_joint block {blocks + 1}-{2 * blocks}" in names,
+        block0=f"train_joint block 1-{blocks}" in names,
+        kernels={k: sum(f"{k}_kernel" in str(e.get("name", ""))
+                        for e in events if e.get("cat") == "kernel")
+                 for k in ("k1_rects", "k1_forward", "k2_backward")})
+
+
+def check_trace(trace: dict, blocks: int, smi: str):
+    """Phase 13 (i)'s profile_dir run: one trace file holding block 1's
+    span and K1's and K2's kernels once an iteration, nothing of block
+    0."""
+    log(f"phase 13 profile_dir (train_joint over the mesh, block 1 traced) "
+        f"[{smi}]: {trace}")
+    k = trace.get("kernels", {})
+    if not (trace["files"] == 1 and trace["block1"] and not trace["block0"]
+            and k["k1_forward"] == blocks and k["k2_backward"] == blocks):
+        fail("phase 13 profile_dir: the trace lacks block 1's span or K1's "
+             "and K2's launches, or holds block 0")
+
+
 @contextlib.contextmanager
 def loop_profiles(k: int):
     """Each StepLoop.run of more than WARMUP + 1 + k steps runs its first
@@ -3986,16 +4143,27 @@ def graphs_sparse(dev, smi):
         f"(relative {d_loss:.3e})")
 
 
-def pretrain_one_step(host_model, fixed, kw, dev, smi):
-    """Phase 13 (h), float32: one replay of the pre-training StepLoop
-    against eager steps from the same state. The WARMUP eager steps and
-    the capture's step come first, so the compared step is a replay at a
-    later row of the step table than the capture's, on another batch (a
-    scalar or an input frozen into the graph at the capture would show).
-    The parameters and the first moments after it, by relative L2 over
-    all of them, must lie within twice the spread of two eager steps from
-    the same state (+ 1e-6); the replays' metrics["lr"] must equal
-    lr_sched(step) in float32 exactly."""
+def pretrain_one_step(host_model, fixed, kw, dev, smi,
+                      tag="phase 13 pretrain fp32", strict=False):
+    """Phase 13 (h), float32 (and phase 11 (b)'s FSDP step over a mesh,
+    with `kw` holding mesh= and fsdp=): one replay of the pre-training
+    StepLoop against eager steps from the same state. The WARMUP eager
+    steps and the capture's step come first, so the compared step is a
+    replay at a later row of the step table than the capture's, on
+    another batch (a scalar or an input frozen into the graph at the
+    capture would show). The parameters and the first moments after it,
+    by relative L2 over all of them, must lie within twice the spread of
+    two eager steps from the same state (+ 1e-6); the replays' metrics
+    ["lr"] must equal lr_sched(step) in float32 exactly. Three more
+    replays follow; with `strict` (phase 11), each whole step under
+    torch.cuda.set_sync_debug_mode("error"), then one more under
+    torch.profiler. Each step is timed between two synchronisations.
+    -> dict(losses of the first WARMUP + 2 steps (their batches are
+    fixed[0], fixed[1], ...), ms {warm-up, capture, replays} by step,
+    card memory GB {state: allocated after init_state, eager: the peak of
+    the warm-up, captured: that of the capture and the compared replay},
+    and with `strict` the launch API calls and
+    cudaGraphLaunch calls of the profiled replay)."""
     import copy
 
     import numpy as np
@@ -4009,9 +4177,30 @@ def pretrain_one_step(host_model, fixed, kw, dev, smi):
                                                compute_dtype=None, **kw)
     lr_sched = trainer.cosine_warmup_schedule(
         kw["base_lr"], kw["min_lr"], kw["warmup_steps"], kw["total_steps"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     state = init(model)
-    for i in range(WARMUP + 1):  # the warm-up, then the capture's step
-        state, _ = step(state, fixed[i % len(fixed)])
+    losses, ms, peak = [], {"warm-up": [], "replays": []}, {}
+    peak["state"] = torch.cuda.memory_allocated() / 1e9
+
+    def timed(batch, into=None):
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        if into is not None:
+            into.append((time.perf_counter() - t) * 1e3)
+        return met
+
+    for i in range(WARMUP):
+        losses.append(float(timed(fixed[i % len(fixed)],
+                                  ms["warm-up"])["loss"]))
+    peak["eager"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    capture = []
+    losses.append(float(timed(fixed[WARMUP % len(fixed)], capture)["loss"]))
+    ms["capture"] = capture[0]
     batch = fixed[(WARMUP + 1) % len(fixed)]
 
     def snapshot(groups=("params", "m")):
@@ -4036,7 +4225,9 @@ def pretrain_one_step(host_model, fixed, kw, dev, smi):
         return float(num / den.clamp(min=1e-300))
 
     before = StepLoop.replays
-    state, met = step(state, batch)
+    met = timed(batch)
+    peak["captured"] = torch.cuda.max_memory_allocated() / 1e9
+    losses.append(float(met["loss"]))
     lrs = [(state["step"], float(met["lr"]))]
     one = snapshot()
     with eager_loops():
@@ -4048,29 +4239,51 @@ def pretrain_one_step(host_model, fixed, kw, dev, smi):
         spread = {g: rel(state[g], eager[g]) for g in ("params", "m")}
     diff = {g: rel(one[g], eager[g]) for g in ("params", "m")}
     del s0, one, eager
+    mets = []
     for i in range(3):  # replays at later rows
-        state, met = step(state, fixed[i % len(fixed)])
-        lrs.append((state["step"], float(met["lr"])))
+        if strict:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            t = time.perf_counter()
+            state, met = step(state, fixed[i % len(fixed)])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms["replays"].append((time.perf_counter() - t) * 1e3)
+        mets.append((state["step"], met))
+    lrs += [(s, float(met["lr"])) for s, met in mets]
+
+    def more():
+        nonlocal state
+        state, _ = step(state, fixed[0])
+
+    prof = api_profile(more, 1) if strict else None
     replays = StepLoop.replays - before
     del state, step, init, model
     torch.cuda.empty_cache()
-    log(f"phase 13 pretrain fp32 one step [{smi}]: the replay of step "
+    log(f"{tag} one step [{smi}]: the replay of step "
         f"{at + 1} against eager steps from the same state, relative L2: "
         f"parameters {diff['params']:.3e} (eager spread "
         f"{spread['params']:.3e}), first moments {diff['m']:.3e} (eager "
         f"spread {spread['m']:.3e}); replays' lr "
         + ", ".join(f"step {s}: {lr:.9g}" for s, lr in lrs))
-    if replays != 4:
-        fail(f"phase 13 pretrain fp32: {replays} replays, expected 4")
+    if replays != 4 + strict:
+        fail(f"{tag}: {replays} replays, expected {4 + strict}")
     for g, label in (("params", "parameters"), ("m", "first moments")):
         if not diff[g] <= 2 * spread[g] + 1e-6:
-            fail(f"phase 13 pretrain fp32: a replayed step's {label} differ "
+            fail(f"{tag}: a replayed step's {label} differ "
                  f"from an eager step's by {diff[g]:.3e} relative L2 (eager "
                  f"spread {spread[g]:.3e})")
     for s, lr in lrs:
         if lr != float(np.float32(lr_sched(s))):
-            fail(f"phase 13 pretrain fp32: the replay of step {s} used lr "
+            fail(f"{tag}: the replay of step {s} used lr "
                  f"{lr!r}, lr_sched gives {float(np.float32(lr_sched(s)))!r}")
+    out = dict(losses=losses, ms=ms, peak=peak)
+    if prof is not None:
+        out.update(launch_calls=launch_calls(prof["api"]),
+                   graph_launches=prof["api"].get("cudaGraphLaunch", 0))
+    return out
 
 
 def graphs_pretrain(host_model, tmp: Path, dev, smi):
@@ -4168,8 +4381,10 @@ def mesh_rank(tmp: Path, device: str = "cuda"):
     """Phase 13 (i), in a child process started by `stage_graphs`: a
     one-rank NCCL group; train_joint(mesh=) on phase 4's scene and align
     (mesh=) on phase 7's oracle pairs, captured (their collectives in the
-    graphs) against eager (StepLoops as Python loops). Writes the lines'
-    numbers and the kernels' launch counts to <tmp>/phase13.json."""
+    graphs) against eager (StepLoops as Python loops); the captured
+    train_joint with TrainerConfig.profile_dir (block 1 traced). Writes
+    the lines' numbers, the trace's summary (`read_trace`) and the
+    kernels' launch counts to <tmp>/phase13.json."""
     import os
 
     import numpy as np
@@ -4215,11 +4430,15 @@ def mesh_rank(tmp: Path, device: str = "cuda"):
             params = fresh()
             torch.cuda.reset_peak_memory_stats()
             before = StepLoop.replays
+            # the captured run traces block 1 (profile_dir), which ends
+            # before the timed blocks begin
+            traced = str(tmp / "trace") if mode == "captured" else None
             _, _, hist = train_joint(
                 params, cams, opt_cfg=opt_cfg, mesh=mesh,
                 trainer_cfg=TrainerConfig(iterations=P13_TRAIN_ITERS,
                                           backend="pallas",
-                                          log_every=P13_LOG_EVERY))
+                                          log_every=P13_LOG_EVERY,
+                                          profile_dir=traced))
             replays = StepLoop.replays - before
             peak[f"train {mode}"] = torch.cuda.max_memory_allocated() / 1e9
             want = P13_TRAIN_ITERS - WARMUP if mode == "captured" else 0
@@ -4266,7 +4485,7 @@ def mesh_rank(tmp: Path, device: str = "cuda"):
             profs[f"align {mode}"] = dict(got["align"][0], k=P13_PROFILED)
     (tmp / "phase13.json").write_text(json.dumps(dict(
         curves=curves, ms=ms, profs=profs, peak=peak,
-        aligned=aligned,
+        aligned=aligned, trace=read_trace(tmp / "trace", P13_LOG_EVERY),
         launches={name: k.launches for name, k in kernels.items()})))
     torch.distributed.destroy_process_group()
 
@@ -4285,6 +4504,7 @@ def graphs_mesh(tmp: Path, smi):
     except (RuntimeError, TimeoutError) as e:
         fail(f"phase 13 (i): {e}")
     got = json.loads((tmp / "phase13.json").read_text())
+    check_trace(got["trace"], P13_LOG_EVERY, smi)
     c, e = got["curves"]["captured"], got["curves"]["eager"]
     diff = max(abs(a - b) / abs(b) for a, b in zip(c, e))
     loop_line(f"train_joint over a one-rank NCCL mesh ({P13_TRAIN_ITERS} "

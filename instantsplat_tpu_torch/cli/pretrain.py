@@ -73,9 +73,13 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--bf16", action="store_true",
                         help="bf16 mixed precision (the reference's --amp)")
     parser.add_argument("--fsdp", action="store_true",
-                        help="shard parameters and Adam moments over the "
-                             "data ranks (ZeRO-3-style; cuts optimizer "
-                             "memory by the number of devices)")
+                        help="shard the float32 masters and both Adam "
+                             "moments over the data ranks (cuts optimizer "
+                             "memory by the number of devices); each step "
+                             "all-gathers the parameters into static "
+                             "buffers and reduce-scatters the gradients, "
+                             "and on a card replays one captured CUDA "
+                             "graph, as without --fsdp")
     parser.add_argument("--output_dir", default=None,
                         help="checkpoint dir; auto-resumes from "
                              "checkpoint-last.npz when present")

@@ -11,9 +11,10 @@ float32, in chunks of `chunk` queries, as the JAX package computes it. The
 product is one large matmul; the package switches TF32 off on import, and
 it must stay off here: TF32's 10-bit mantissa would flip nearest
 neighbours. `torch.argmin` returns the first index at a tie, as
-`jnp.argmin` does. Every round queries every seed, as JAX's fixed-trip loop
-does (a converged seed keeps its indices through the mask); the loop ends
-early once no seed is active, which changes nothing.
+`jnp.argmin` does. The rounds are JAX's fixed-trip loop: exactly
+`max_iter` of them, each querying every seed (a converged seed keeps its
+indices through the mask), with no read of the device between them; the
+host reads the result once, after the last round.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ def nn_indices(queries, database, chunk: int = 4096,
 def _reciprocal_iterate(d1: torch.Tensor, d2: torch.Tensor,
                         xy1: torch.Tensor, max_iter: int, chunk: int):
     """The ping-pong on flat descriptor tables d1 [N1, D], d2 [N2, D] from
-    seed indices xy1 [M] -> (xy1, xy2, active), active = not converged."""
+    seed indices xy1 [M]: max_iter masked rounds, nothing read on the host.
+    -> (xy1, xy2, active), active = not converged."""
     sq1 = torch.sum(d1 * d1, -1)
     sq2 = torch.sum(d2 * d2, -1)
     xy2 = torch.full_like(xy1, -1)
@@ -58,8 +60,6 @@ def _reciprocal_iterate(d1: torch.Tensor, d2: torch.Tensor,
         new_xy1 = torch.where(active, _nn(d2[new_xy2], d1, sq1, chunk), xy1)
         converged = (new_xy1 == xy1) & (new_xy2 == xy2)
         xy1, xy2, active = new_xy1, new_xy2, active & ~converged
-        if not bool(active.any()):
-            break
     return xy1, xy2, active
 
 

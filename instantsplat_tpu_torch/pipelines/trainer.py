@@ -30,7 +30,10 @@ render is sharded over the ranks (parallel/sharding.py); rank 0 draws the
 view order and broadcasts it (a block's view table, on the device), and
 `auto` resolves to the dense kernels, as in JAX. With a `viewer`
 (render/network_gui.NetworkGUI), every iteration first answers at most
-one pending viewer request (_serve_viewer).
+one pending viewer request (_serve_viewer). With
+`TrainerConfig.profile_dir`, block 1 (replays, on a card) runs under a
+torch.profiler trace written there (utils/profiling.py), as JAX traces
+its second block; every block is an `annotate` span.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from instantsplat_tpu_torch.render.driver import (
     render,
     tiled_view_requirements,
 )
+from instantsplat_tpu_torch.utils import profiling
 from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, to_device
 
 _log = logging.getLogger(__name__)
@@ -79,6 +83,10 @@ class TrainerConfig:
     # end. Off with a live viewer (per-iteration polling) and on
     # mixed-shape scenes, which step eagerly
     scan: bool = True
+    # when set, the second block (block 0 holds the warm-up and the
+    # capture, block 1 replays) runs under a torch.profiler trace written
+    # to this directory (utils/profiling.py)
+    profile_dir: Optional[str] = None
     # renders sharded over an n_devices 1-D mesh (parallel/sharding.py):
     # 0/None/1 = one device; -1 = every rank of the group. shard_axis:
     # 'pixels' (row blocks per rank) or 'gaussians' (depth slices)
@@ -468,30 +476,37 @@ def train_joint(
         if reprobe_state == 2:
             name = alt_name
         timed = (block_cap is None and block_idx in (1, 3)) or reprobe_state
-        if timed:
-            _sync(dev)
-        t_blk = _clock()
         active_sh = min(it // interval, params.max_sh_degree)
-        if use_scan:
-            views = [next_view() for _ in range(it, end + 1)]
-            params, opt_state, metrics = block_fn(name)(
-                params, opt_state, views, list(range(it, end + 1)),
-                active_sh)
-        else:
-            table = to_device(optimizer.step_scalars(
-                range(it, end + 1), opt_state.step + 1), dev)
-            for j, i in enumerate(range(it, end + 1)):
-                if viewer is not None:
-                    _serve_viewer(viewer, params, name, trainer_cfg.chunk)
-                view = next_view()
-                metrics = train_step(params, cameras[view], optimizer,
-                                     opt_state, i, active_sh, bg,
-                                     opt_cfg.lambda_dssim, name,
-                                     trainer_cfg.chunk, **sharded,
-                                     scalars=table[j])
-        if timed:
-            _sync(dev)
-        per_iter = (_clock() - t_blk) / (end - it + 1)
+        with profiling.profile_trace(trainer_cfg.profile_dir,
+                                     enabled=block_idx == 1), \
+                profiling.annotate(f"train_joint block {it}-{end}"):
+            # the clock is read inside the traced region: the trace's start,
+            # stop and export (block 1 under profile_dir) stay out of the
+            # auto probe's time
+            if timed:
+                _sync(dev)
+            t_blk = _clock()
+            if use_scan:
+                views = [next_view() for _ in range(it, end + 1)]
+                params, opt_state, metrics = block_fn(name)(
+                    params, opt_state, views, list(range(it, end + 1)),
+                    active_sh)
+            else:
+                table = to_device(optimizer.step_scalars(
+                    range(it, end + 1), opt_state.step + 1), dev)
+                for j, i in enumerate(range(it, end + 1)):
+                    if viewer is not None:
+                        _serve_viewer(viewer, params, name,
+                                      trainer_cfg.chunk)
+                    view = next_view()
+                    metrics = train_step(params, cameras[view], optimizer,
+                                         opt_state, i, active_sh, bg,
+                                         opt_cfg.lambda_dssim, name,
+                                         trainer_cfg.chunk, **sharded,
+                                         scalars=table[j])
+            if timed:
+                _sync(dev)
+            per_iter = (_clock() - t_blk) / (end - it + 1)
         if reprobe_state == 1:
             per_cur_probe = per_iter
             reprobe_state = 2

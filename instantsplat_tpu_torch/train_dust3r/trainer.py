@@ -18,8 +18,8 @@ a card each optimizer step is one replay of a captured CUDA graph, which
 reads the batch from static device buffers (filled from pinned memory
 before the replay) and the step's learning rate and bias corrections from
 a device table by a device step counter; on the CPU the same step runs
-eagerly. FSDP re-allocates the gathered parameters every step and steps
-eagerly.
+eagerly. FSDP takes the same path: its collectives read and write static
+buffers (see below), so they are captured with the step.
 
 Mixed precision (`compute_dtype=torch.bfloat16`) is the JAX package's:
 every floating parameter (LayerNorm included) and both images are cast to
@@ -46,10 +46,18 @@ optimizer step sums the ranks' gradients: an all-reduce (DDP), or with
 masters, their gradients and both AdamW moments as flat per-rank shards
 (each parameter cut into `world` contiguous chunks of its flattened
 elements; JAX shards each leaf's largest divisible dim, a different
-layout with the same numbers): the module's full parameters are gathered
-for a step's forward and backward and freed after it. Checkpoints stay
-full tensors in JAX's layout, gathered and written by rank 0; a resume
-re-shards them.
+layout with the same numbers). The rank's chunks live in one flat buffer
+and the module's full parameters are views into a padded buffer, both
+allocated once, so a step's addresses never change: the step
+all-gathers the chunks into a [world, C] working buffer and copies each
+parameter's columns into its storage, runs the micro-batches, copies
+the gradients into such a buffer and reduce-scatters it onto a gradient
+shard, which AdamW reads. The working buffers, the gradients and their
+shard are the step's temporaries, as its activations are (a captured
+graph gives each a fixed address in its pool, where they share memory
+with the activations), so the peak holds what the eager step's did.
+Checkpoints stay full tensors in JAX's layout, gathered and written by
+rank 0; a resume copies this rank's chunks into the same buffers.
 """
 
 from __future__ import annotations
@@ -113,7 +121,7 @@ class _DataParallel:
 
         self.group, self.rank, self.world = runtime.axis(mesh)
         self.fsdp = fsdp
-        self.shapes = None  # name -> full shape (fsdp)
+        self.shapes = None  # each parameter's full shape (fsdp: bind)
 
     # -- the batch and the predictions --
     def share(self, x):
@@ -155,64 +163,104 @@ class _DataParallel:
     def _chunk(self, numel: int) -> int:
         return -(-numel // self.world)
 
-    def _rows(self, full):
-        """[world, C]: row r = the r-th chunk of every tensor, padded."""
-        rows = []
-        for t in full:
-            c = self._chunk(t.numel())
-            f = t.reshape(-1)
-            rows.append(torch.nn.functional.pad(
-                f, (0, c * self.world - f.numel())).view(self.world, c))
-        return torch.cat(rows, 1)
-
     def shard(self, full):
         """This rank's chunks of the full tensors, as 1-D tensors."""
-        self.shapes = [t.shape for t in full]
-        return [r.clone() for r in self._views(self._rows(full)[self.rank])]
+        out = []
+        for t in full:
+            c = self._chunk(t.numel())
+            f = torch.nn.functional.pad(t.reshape(-1),
+                                        (0, c * self.world - t.numel()))
+            out.append(f.view(self.world, c)[self.rank].clone())
+        return out
 
     def _views(self, flat):
-        out, k = [], 0
-        for s in self.shapes:
-            c = self._chunk(s.numel())
-            out.append(flat[k:k + c])
-            k += c
-        return out
+        """Each parameter's chunk of a flat [C] buffer."""
+        return [flat[k:k + c] for k, c in self._spans]
 
     def unshard(self, shards):
         """The full tensors from every rank's chunks (all-gather)."""
         from instantsplat_tpu_torch.parallel.runtime import all_gather_cat
 
         rows = all_gather_cat(torch.cat(shards)[None], self.group)
-        out, k = [], 0
-        for s in self.shapes:
-            c = self._chunk(s.numel())
-            out.append(rows[:, k:k + c].reshape(-1)[:s.numel()].view(s))
-            k += c
-        return out
+        return [col.reshape(-1)[:s.numel()].view(s)
+                for col, s in zip(self._columns(rows), self.shapes)]
 
-    def reduce_scatter(self, grads):
-        """This rank's chunks of the ranks' summed gradients."""
-        rows = self._rows(grads)
-        if torch.distributed.get_backend(self.group) == "nccl":
-            mine = torch.empty_like(rows[0])
-            torch.distributed.reduce_scatter_tensor(
-                mine, rows.reshape(-1), group=self.group)
-        else:  # gloo has no reduce-scatter: all-reduce, keep this row
-            torch.distributed.all_reduce(rows, group=self.group)
-            mine = rows[self.rank]
-        return self._views(mine)
-
-    def gather_params(self, model, state):
-        """The module's full float32 masters from the shards."""
+    def bind(self, model):
+        """FSDP's static storage, made once: this rank's chunks of the
+        module's parameters in one flat buffer, the module's parameters as
+        views into a padded buffer (parameter i takes world x C_i
+        elements, row r its r-th chunk). The gradients are left to each
+        step (see reduce_scatter). -> the master chunks, one view of the
+        flat buffer a parameter."""
+        params = list(model.parameters())
+        self.shapes = [p.shape for p in params]
+        w, size = self.world, 0
+        kw = dict(dtype=params[0].dtype, device=params[0].device)
+        self._spans = []  # (offset, length) of each parameter's chunk
+        for p in params:
+            self._spans.append((size, self._chunk(p.numel())))
+            size += self._spans[-1][1]
+        full = torch.zeros(w * size, **kw)
+        self.master = torch.empty(size, **kw)
+        self._full = []  # each parameter's storage as [world, C_i]
         with torch.no_grad():
-            for p, full in zip(model.parameters(),
-                               self.unshard(list(state["params"].values()))):
-                p.data = full
+            for p, (k, c) in zip(params, self._spans):
+                f = full[w * k:w * (k + c)]
+                f[:p.numel()].copy_(p.reshape(-1))
+                p.data = f[:p.numel()].view(p.shape)
+                p.grad = None
+                self._full.append(f.view(w, c))
+            masters = self._views(self.master)
+            torch._foreach_copy_(masters, [f[self.rank] for f in self._full])
+        return masters
 
-    def free_params(self, model):
-        for p in model.parameters():
-            p.data = p.data.new_empty(0)
-            p.grad = None
+    def _nccl(self) -> bool:
+        return torch.distributed.get_backend(self.group) == "nccl"
+
+    def _columns(self, rows):
+        """Each parameter's [world, C_i] columns of a [world, C] buffer."""
+        return [rows[:, k:k + c] for k, c in self._spans]
+
+    def gather_params(self):
+        """The module's full parameters from every rank's master chunks,
+        written into their static storage: an all-gather into a [world, C]
+        working buffer, then each parameter's columns."""
+        with torch.no_grad():
+            rows = self.master.new_empty(self.world, self.master.numel())
+            if self._nccl():
+                torch.distributed.all_gather_into_tensor(
+                    rows.view(-1), self.master, group=self.group)
+            else:
+                torch.distributed.all_gather(list(rows.unbind(0)),
+                                             self.master, group=self.group)
+            torch._foreach_copy_(self._full, self._columns(rows))
+
+    def reduce_scatter(self, params):
+        """This rank's chunks of the ranks' summed `.grad`s of `params`, in
+        a flat gradient shard (views, one a parameter). The gradients, the
+        [world, C] working buffer and the shard are the step's temporaries,
+        as its activations are (a captured graph gives each a fixed address
+        in its pool, where they share memory with the activations): each
+        gradient is copied into the working buffer, padded, and dropped; a
+        parameter the loss does not reach has none, and its columns stay
+        zero."""
+        w = self.world
+        with torch.no_grad():
+            rows = self.master.new_zeros(w, self.master.numel())
+            shard = torch.empty_like(self.master)
+            for q, col in zip(params, self._columns(rows)):
+                if q.grad is not None:
+                    g = q.grad.reshape(-1)
+                    col.copy_(torch.nn.functional.pad(
+                        g, (0, col.numel() - g.numel())).view(col.shape))
+                    q.grad = None
+            if self._nccl():
+                torch.distributed.reduce_scatter_tensor(
+                    shard, rows.view(-1), group=self.group)
+            else:  # gloo has no reduce-scatter: all-reduce, keep this row
+                torch.distributed.all_reduce(rows, group=self.group)
+                shard.copy_(rows[self.rank])
+        return self._views(shard)
 
 
 def _make_objective(cfg, loss_fn, alpha, compute_dtype, dp=None):
@@ -248,13 +296,18 @@ def _adamw(p, g, m, v, decay, lr, bc1, bc2, beta1, beta2, eps,
     `torch._foreach_*` launches over all parameters, JAX's
     p - lr * (u + wd * p). decay[i]: whether p[i] takes weight decay
     (matrices and conv kernels). lr, bc1, bc2: numbers or 0-dim tensors on
-    the parameters' device (a captured step's row of its table)."""
+    the parameters' device (a captured step's row of its table). g is the
+    step's own (the static `.grad`s the next step zeroes, or the reduced
+    gradients), dead once the moments are updated: the denominator is
+    computed in it."""
     with torch.no_grad():
         torch._foreach_mul_(m, beta1)
         torch._foreach_add_(m, g, alpha=1 - beta1)
         torch._foreach_mul_(v, beta2)
         torch._foreach_addcmul_(v, g, g, value=1 - beta2)
-        den = torch._foreach_div(v, bc2)
+        den = g
+        torch._foreach_copy_(den, v)
+        torch._foreach_div_(den, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
         u = torch._foreach_div(m, bc1)
@@ -301,7 +354,8 @@ def make_dp_train_step(
     mesh: a 1-D DeviceMesh; every rank passes the same global batch and
     gets the same metrics (see the module docstring). fsdp (needs a
     mesh): params / m / v in the state are this rank's flat chunks, and
-    state["dp"] holds the layout; its steps run eagerly."""
+    state["dp"] holds the layout and the static buffers; the module's
+    parameters hold the full values of the last step's gather."""
     if fsdp and mesh is None:
         raise ValueError("fsdp=True needs a mesh")
     dp = None if mesh is None else _DataParallel(mesh, fsdp)
@@ -310,9 +364,6 @@ def make_dp_train_step(
     objective = _make_objective(cfg, loss_fn or regr3d_conf_loss, alpha,
                                 compute_dtype, dp)
     eps = 1e-8
-    if fsdp and dp.rank == 0:
-        print("[pretrain] fsdp: optimizer steps run eagerly (the gathered "
-              "parameters are re-allocated every step)", flush=True)
 
     def init_state(model):
         params = dict(model.named_parameters())
@@ -322,9 +373,7 @@ def make_dp_train_step(
             dp.broadcast_(list(params.values()))
             state["dp"] = dp
         if fsdp:
-            shards = dp.shard([p.detach() for p in params.values()])
-            params = dict(zip(params, shards))
-            dp.free_params(model)
+            params = dict(zip(params, dp.bind(model)))
         state.update(params=params,
                      m={k: torch.zeros_like(p) for k, p in params.items()},
                      v={k: torch.zeros_like(p) for k, p in params.items()})
@@ -354,13 +403,12 @@ def make_dp_train_step(
         bc2 of this step)."""
         names = list(state["params"])
         # a parameter the loss does not reach (the local-feature head under
-        # regr3d_conf, refinenet4's unused skip unit) has a zero gradient,
-        # as in JAX: its moments decay and weight decay still applies
-        g = [q.grad if q.grad is not None else torch.zeros_like(q)
-             for q in model.parameters()]
+        # regr3d_conf, refinenet4's unused skip unit) has a zero gradient
+        # (its static buffer, zeroed; under fsdp zero columns), as in JAX:
+        # its moments decay and weight decay still applies
+        g = [q.grad for q in model.parameters()]
         if fsdp:
-            g = dp.reduce_scatter(g)
-            dp.free_params(model)
+            g = dp.reduce_scatter(model.parameters())
         elif dp is not None:
             g = dp.all_reduce(g)
         lr, bc1, bc2 = row
@@ -402,7 +450,8 @@ def make_dp_train_step(
     def loop_for(state, batch, dev):
         model = state["module"]
         storage = tuple(t.data_ptr() for group in ("params", "m", "v")
-                        for t in state[group].values())
+                        for t in state[group].values()) + tuple(
+                            q.data_ptr() for q in model.parameters())
         key = (StaticInputs.signature(batch), storage)
         if key in loops:
             loops[key] = loops.pop(key)  # most recently used last
@@ -412,13 +461,16 @@ def make_dp_train_step(
         if dev.type == "cuda" and not pool:
             pool.append(torch.cuda.graph_pool_handle())
         for q in model.parameters():  # static buffers the step zeroes
-            if q.grad is None:
+            if q.grad is None and not fsdp:
                 q.grad = torch.zeros_like(q)
         inputs = StaticInputs(batch, dev)
         grads = [q.grad for q in model.parameters()]
 
         def step():
-            torch._foreach_zero_(grads)
+            if fsdp:
+                dp.gather_params()
+            else:
+                torch._foreach_zero_(grads)
             loss, details = accumulate(model, inputs.tree)
             tab = sched["table"]
             lr = update(state, model, tab.row().unbind(0))
@@ -434,27 +486,15 @@ def make_dp_train_step(
     def train_step(state, batch):
         model = state["module"]
         step = state["step"] + 1
-        if fsdp:
-            dp.gather_params(model, state)
-            dev = next(model.parameters()).device
-            for q in model.parameters():
-                q.grad = None
-            loss, details = accumulate(model, to_device(batch, dev))
-            lr = update(state, model, [float(x) for x in row(step)])
-            for q in model.parameters():
-                q.grad = None
-            metrics = dict(loss=loss, lr=torch.full((), lr, device=dev),
-                           **details)
-        else:
-            dev = next(model.parameters()).device
-            tab = table(dev, step)
-            loop, inputs = loop_for(state, batch, dev)
-            inputs.copy_(batch)
-            if sched["at"] != state["step"]:
-                tab.seek(state["step"])
-            # the outputs of a replay are rewritten by the next one
-            metrics = {k: v.clone() for k, v in loop.run(1).items()}
-            sched["at"] = step
+        dev = next(model.parameters()).device
+        tab = table(dev, step)
+        loop, inputs = loop_for(state, batch, dev)
+        inputs.copy_(batch)
+        if sched["at"] != state["step"]:
+            tab.seek(state["step"])
+        # the outputs of a replay are rewritten by the next one
+        metrics = {k: v.clone() for k, v in loop.run(1).items()}
+        sched["at"] = step
         state["step"] = step
         return state, metrics
 
@@ -626,8 +666,8 @@ def train_loop(model, cfg, batches: Iterator, mesh=None, n_steps=None,
         if eval_batches is not None else None
 
     def run_eval(step):
-        if fsdp:
-            state["dp"].gather_params(model, state)
+        if fsdp:  # the module holds the values before the last update
+            state["dp"].gather_params()
         totals, n = {}, 0
         for eb in eval_batches():
             loss, details = eval_step(model, eb)
@@ -636,8 +676,6 @@ def train_loop(model, cfg, batches: Iterator, mesh=None, n_steps=None,
                 totals[f"test_{k}"] = totals.get(f"test_{k}", 0.0) \
                     + float(v)
             n += 1
-        if fsdp:
-            state["dp"].free_params(model)
         if n:
             history.append((step, {k: v / n for k, v in totals.items()}))
 
@@ -689,7 +727,7 @@ def train_loop(model, cfg, batches: Iterator, mesh=None, n_steps=None,
             int(state["step"]) != last_eval:
         run_eval(int(state["step"]))
     if fsdp:
-        state["dp"].gather_params(model, state)
+        state["dp"].gather_params()
     return model, history
 
 

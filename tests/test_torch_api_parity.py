@@ -51,8 +51,6 @@ _RUNTIME = "parallel/runtime: the JAX one drives jax.distributed and " \
 EXCEPTIONS = {
     "native/__init__.py": "the EXR decoder's native build became "
     "data/exr.py over csrc/exr_native.cpp",
-    "utils/profiling.py": "jax.profiler; the port profiles with "
-    "torch.profiler (chip_smoke.py)",
     "ops/rasterize_pallas.py::BLOCK_ROWS": _TPU,
     "ops/rasterize_pallas.py::CHUNKS_PER_STEP": _TPU,
     "ops/rasterize_pallas.py::G_CHUNK": _TPU,
@@ -65,8 +63,6 @@ EXCEPTIONS = {
     "pipelines/trainer.py::train_step",
     "pipelines/trainer.py::TrainerConfig.dispatch_budget_s": "the TPU's "
     "~60 s dispatch governor",
-    "pipelines/trainer.py::TrainerConfig.profile_dir": "jax.profiler "
-    "traces (utils/profiling.py)",
     "pipelines/train_pipeline.py::save_checkpoint_orbax": "orbax is a JAX "
     "library format; npz is the one both packages read",
     "pipelines/train_pipeline.py::load_checkpoint_orbax": "orbax, as above",

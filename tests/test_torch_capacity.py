@@ -464,6 +464,45 @@ def test_auto_probe_keeps_the_faster(monkeypatch, capsys, fresh_guard,
     assert f"[train] backend auto: {word} (" in out, out
 
 
+def test_traced_block_does_not_sway_the_probe(monkeypatch, capsys,
+                                               fresh_guard, tmp_path):
+    """profile_dir traces block 1, the dense block auto times: the trace's
+    start, stop and export (here 1000 clock units each) stay out of its
+    time, so the probe keeps the same backend as an untraced run."""
+    import contextlib
+
+    from instantsplat_tpu_torch.utils import profiling
+
+    arrays, specs = _small_scene(n=60)
+    real = profiling.profile_trace
+    runs = {}
+    for traced in (False, True):
+        with monkeypatch.context() as mp:
+            g, cams = _port(arrays, specs)
+            seen = _rig(mp, lambda b: not _is_dense(b))
+            rigged, late = tr._clock, [0.0]
+            mp.setattr(tr, "_clock", lambda: rigged() + late[0])
+
+            @contextlib.contextmanager
+            def slow_trace(logdir, enabled=True):
+                cost = 1000.0 if enabled and logdir else 0.0
+                late[0] += cost
+                with real(logdir, enabled):
+                    yield
+                late[0] += cost
+
+            mp.setattr(profiling, "profile_trace", slow_trace)
+            logdir = str(tmp_path / "prof") if traced else None
+            train_joint(g, cams, OptimizationConfig(optim_pose=True),
+                        TrainerConfig(iterations=10, log_every=2,
+                                      backend="auto", profile_dir=logdir))
+        runs[traced] = [b for _, b in seen]
+        assert "[train] backend auto: dense (" in capsys.readouterr().out
+    assert runs[True] == runs[False]
+    assert runs[True][8:] == ["pallas"] * 2
+    assert len(list((tmp_path / "prof").glob("*.pt.trace.json"))) == 1
+
+
 def test_reprobe_resizes_then_demotes(monkeypatch, capsys, fresh_guard):
     """Every _REPROBE_EVERY iterations the capacity side is re-sized
     against the live scene (a grown requirement is adopted), and a

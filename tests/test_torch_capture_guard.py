@@ -11,11 +11,13 @@ a capacity backend), the pose refiner, the dense aligner, both sparse
 alignment phases, the pre-training step (the TINY MASt3R in bf16, two
 micro-batches a step, the fine-tuning loss), and train_joint / align
 over a 2-rank gloo mesh (tests/torch_parallel_worker.py's `guard2`
-group). Each test asserts that its loops did run guarded steps.
+group), and the FSDP pre-training step over a one-rank gloo group. Each
+test asserts that its loops did run guarded steps.
 
 The `gpu` twin runs the new loops on the card with
 torch.cuda.set_sync_debug_mode("error") around every eager step and
-every replay, and around whole pre-training steps once captured.
+every replay, and around whole pre-training steps (one device and FSDP
+over a one-rank NCCL group) once captured.
 """
 
 import contextlib
@@ -138,10 +140,12 @@ def _pretrain_batch(cfg, seed, h=32, w=48, n_corres=24):
     return b
 
 
-def _pretrain_steps(device, n_steps, around_step=contextlib.nullcontext):
+def _pretrain_steps(device, n_steps, around_step=contextlib.nullcontext,
+                    **mesh):
     """n_steps bf16 pre-training steps of the TINY MASt3R, two
     micro-batches a step, the fine-tuning loss; each step inside
-    around_step(i). -> the losses."""
+    around_step(i); `mesh` (mesh=, fsdp=) passed to make_dp_train_step.
+    -> the losses."""
     from instantsplat_tpu_torch.cli.pretrain import TINY
     from instantsplat_tpu_torch.models import mast3r
     from instantsplat_tpu_torch.train_dust3r import losses, trainer as tt
@@ -151,7 +155,7 @@ def _pretrain_steps(device, n_steps, around_step=contextlib.nullcontext):
     init, step, _ = tt.make_dp_train_step(
         cfg, base_lr=5e-4, warmup_steps=2, total_steps=8,
         loss_fn=losses.mast3r_finetune_loss, accum_iter=2,
-        compute_dtype=torch.bfloat16)
+        compute_dtype=torch.bfloat16, **mesh)
     state = init(model)
     out = []
     for i in range(n_steps):
@@ -168,6 +172,35 @@ def test_pretrain_step_reads_nothing():
         losses = _pretrain_steps("cpu", 6)
     assert np.all(np.isfinite(losses))
     assert guarded == {"pretrain step": 6 - WARMUP}
+
+
+@contextlib.contextmanager
+def _one_rank_group(device, store):
+    """A one-rank process group in this process (gloo on the CPU, NCCL on
+    a card) -> its mesh; destroyed on the way out."""
+    import torch.distributed as dist
+
+    from instantsplat_tpu_torch.parallel import initialize_runtime, make_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    initialize_runtime(device, init_method=f"file://{store}", world_size=1,
+                       rank=0)
+    try:
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_fsdp_pretrain_step_reads_nothing(tmp_path):
+    """The FSDP step over a one-rank gloo group (the all-gather into the
+    static rows, the reduce-scatter onto the gradient shard, AdamW on the
+    shards) runs as the pre-training StepLoop, its steps guarded."""
+    with _one_rank_group("cpu", tmp_path / "store") as mesh:
+        with guarded_loops() as guarded:
+            losses = _pretrain_steps("cpu", 5, mesh=mesh, fsdp=True)
+    assert np.all(np.isfinite(losses))
+    assert guarded == {"pretrain step": 5 - WARMUP}
 
 
 def _child_env():
@@ -257,15 +290,11 @@ def cuda():
 @pytest.mark.gpu
 def test_new_loops_make_no_host_sync_on_the_card(cuda, tmp_path):
     """The sparse phases, the pre-training step (whole steps once its
-    graph is captured), and train_joint (both shard axes) and align over
-    a one-rank NCCL mesh: no synchronisation in a step, each loop
-    replayed. (On the CPU a dispatch mode cannot see every host read in
-    PyTorch's C++: under a mode the backward of prod takes its
-    read-free path.)"""
-    import torch.distributed as dist
-
-    from instantsplat_tpu_torch.parallel import initialize_runtime, make_mesh
-
+    graph is captured), and train_joint (both shard axes), align and the
+    FSDP pre-training step (whole steps too) over a one-rank NCCL mesh:
+    no synchronisation in a step, each loop replayed. (On the CPU a
+    dispatch mode cannot see every host read in PyTorch's C++: under a
+    mode the backward of prod takes its read-free path.)"""
     c2w, _, preds = sparse_scene(PairPrediction, n_views=3)
     preds = attach_world_desc(preds, c2w)
     with _steps_refuse_syncs() as replays:
@@ -279,15 +308,10 @@ def test_new_loops_make_no_host_sync_on_the_card(cuda, tmp_path):
                        "sparse_align fine": 12 - WARMUP,
                        "pretrain step": 8 - WARMUP}
 
-    if dist.is_initialized():
-        pytest.skip("a process group is already up in this process")
-    initialize_runtime("cuda", init_method=f"file://{tmp_path / 'store'}",
-                       world_size=1, rank=0)
-    try:
+    with _one_rank_group("cuda", tmp_path / "store") as mesh:
         root = tmp_path / "scene"
         write_tiny_scene(root)
         info = read_scene(root, 3, device=cuda)
-        mesh = make_mesh(1)
         with _steps_refuse_syncs() as replays:
             for axis in ("pixels", "gaussians"):
                 g = GaussianModel.create_from_pcd(
@@ -305,10 +329,12 @@ def test_new_loops_make_no_host_sync_on_the_card(cuda, tmp_path):
             al = GlobalAligner(aligner_case(), device=cuda)
             al.init_mst(focal_avg=True)
             al.align(niter=10, mesh=mesh)
+            losses = _pretrain_steps(cuda, 8, lambda i: _sync_errors(
+                "error" if i > WARMUP else "default"), mesh=mesh, fsdp=True)
+            assert np.all(np.isfinite(losses))
         assert replays == {"make_train_scan": 2 * (10 - WARMUP),
-                           "align": 10 - WARMUP}
-    finally:
-        dist.destroy_process_group()
+                           "align": 10 - WARMUP,
+                           "pretrain step": 8 - WARMUP}
 
 
 def test_step_table_rows_by_the_device_counter():

@@ -1,6 +1,7 @@
 """The port's reciprocal nearest-neighbour matching (ops/matching.py)
 against the JAX package's, on the CPU: the same seeded descriptors give
-the same indices and the same match sets. The descriptors are
+the same indices and the same match sets, with no host read between
+the rounds. The descriptors are
 well separated (unit-normalised 24-d Gaussians, and tests/test_aligner.py's
 world-position field), so the two packages' float32 distances, summed in
 different orders, cannot swap two candidates."""
@@ -72,6 +73,35 @@ def test_world_position_field_matches_jax():
             np.testing.assert_array_equal(a, b)
         n += len(ref[0])
     assert n > 100
+
+
+@pytest.mark.parametrize("kind", ["independent", "shifted"])
+def test_rounds_read_nothing_and_match_jax(monkeypatch, kind):
+    """The rounds run JAX's fixed trip with no host read between them
+    (tests/torch_host_reads.py's guard around the whole loop), on
+    descriptors whose last seed converges before max_iter (the first k
+    with no seed active after k rounds), and the matches are JAX's."""
+    from torch_host_reads import no_host_reads
+
+    real, rounds = m._reciprocal_iterate, []
+
+    def guarded(d1, d2, xy1, max_iter, chunk):
+        with no_host_reads("reciprocal rounds"):
+            out = real(d1, d2, xy1, max_iter, chunk)
+        rounds.append(next((k for k in range(1, max_iter + 1)
+                            if not real(d1, d2, xy1, k, chunk)[2].any()),
+                           max_iter))
+        return out
+
+    monkeypatch.setattr(m, "_reciprocal_iterate", guarded)
+    d1, d2 = _pair(kind, 31, 40, seed=7)
+    got = m.fast_reciprocal_nns(d1, d2, subsample=4, max_iter=10, chunk=32,
+                                device="cpu")
+    ref = jm.fast_reciprocal_nns(d1, d2, subsample=4, max_iter=10, chunk=32)
+    assert len(rounds) == 1 and 1 < rounds[0] < 10, rounds
+    assert len(ref[0]) > 0
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_identity_and_shift():

@@ -15,7 +15,8 @@ by the module fixture.
   packages (ROADMAP.md §3, "Adam amplifies rounding"); an accumulating
   FSDP step
   against the one-device step; the FSDP checkpoint read by JAX's
-  load_pretrain_checkpoint;
+  load_pretrain_checkpoint; an FSDP train_loop resumed from its step-1
+  checkpoint continues JAX's two-step trajectory;
 - tensor parallelism: cli.pretrain's TINY forward with shard_params_tp
   over 2 ranks against the one-device forward at JAX's tolerance (2e-5 of
   each output's scale);
@@ -25,6 +26,7 @@ by the module fixture.
   rank 0, that JAX reads and that holds the one-process run's numbers.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -127,6 +129,7 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_state(fsdp):
     """JAX's state and losses after two steps of the FSDP case."""
     from instantsplat_tpu.train_dust3r.trainer import synthetic_batch
@@ -170,6 +173,28 @@ def test_dp_steps_match_jax(ranks, tag):
             for name, want in got.items():
                 np.testing.assert_array_equal(
                     want, out[f"dp/fsdp/{group}/{name}"])
+
+
+def test_fsdp_resume_continues_jax_trajectory(ranks):
+    """train_loop with fsdp=True stopped after step 1 and resumed from its
+    checkpoint-last.npz by a new model and step function: step 2's loss,
+    and the parameters and moments it saves, are JAX's uninterrupted
+    second step's."""
+    state, losses = _jax_state(True)
+    out = ranks.out
+    assert out["resume/steps"].tolist() == [2]
+    np.testing.assert_allclose(out["resume/loss"], losses[1:], rtol=1e-5)
+    saved = jt.load_pretrain_checkpoint(
+        ranks.root / "resume" / "checkpoint-last.npz", state)
+    assert int(saved["step"]) == 2
+    bad = {}
+    for group, tol in TOL.items():
+        got = _named(saved[group])
+        for name, want in _named(state[group]).items():
+            err = _rel_l2(got[name], want)
+            if err > tol:
+                bad[(group, name)] = err
+    assert not bad, bad
 
 
 def test_fsdp_accumulation_matches_one_device(ranks):

@@ -407,6 +407,25 @@ def case_dp_steps(inp, mesh):
     return out
 
 
+def case_fsdp_resume(inp, mesh):
+    """FSDP through train_loop: one step saved to checkpoint-last.npz,
+    then a new model and step function resume it at step 1 and take step
+    2 (past the warm-up: the step table's counter is re-seeked); the
+    resumed run's history and checkpoint."""
+    from instantsplat_tpu_torch.models import mast3r
+    from instantsplat_tpu_torch.train_dust3r import trainer as tt
+
+    cfg = _dp_cfg()
+    batch = tt.synthetic_batch(cfg, batch=4, h=32, w=32, seed=1)
+    kw = dict(warmup_steps=1, total_steps=4, fsdp=True)
+    for n in (1, 2):
+        model = mast3r.build_trainable("random:0", cfg, device="cpu")
+        _, hist = tt.train_loop(model, cfg, iter([batch] * n), mesh=mesh,
+                                n_steps=n, output_dir=OUT / "resume", **kw)
+    return {"resume/steps": np.array([s for s, _ in hist]),
+            "resume/loss": np.array([m["loss"] for _, m in hist])}
+
+
 def case_guarded_loops(inp, mesh):
     """train_joint (one block a shard axis) and align over the mesh with
     every step after a loop's warm-up refusing host reads
@@ -439,7 +458,7 @@ GROUPS = {
                  case_aligner,
                  case_mesh_raises],
     "renders4": [case_hybrid, case_aligner, case_mesh_2d, case_mesh_raises],
-    "models2": [case_infer_pairs, case_tp, case_dp_steps],
+    "models2": [case_infer_pairs, case_tp, case_dp_steps, case_fsdp_resume],
     "guard2": [case_guarded_loops],
 }
 
