@@ -3988,18 +3988,16 @@ def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict,
 
 def read_trace(logdir: Path, blocks: int) -> dict:
     """The trace that TrainerConfig.profile_dir left in `logdir` (blocks
-    of `blocks` iterations; block 1 traced): its files, size, events,
-    whether block 1's and block 0's `annotate` spans are in it, and its
+    of `blocks` iterations; block 1 traced): its files, size, events, the
+    number of `train.block` spans in it (one: block 1's alone), and its
     kernel events of KR, K1 and K2."""
     files = sorted(logdir.glob("*.pt.trace.json"))
     if len(files) != 1:
         return dict(files=len(files))
     events = json.loads(files[0].read_text())["traceEvents"]
-    names = {str(e.get("name", "")) for e in events}
     return dict(
         files=1, mb=files[0].stat().st_size / 1e6, events=len(events),
-        block1=f"train_joint block {blocks + 1}-{2 * blocks}" in names,
-        block0=f"train_joint block 1-{blocks}" in names,
+        block_spans=sum(e.get("name") == "train.block" for e in events),
         kernels={k: sum(f"{k}_kernel" in str(e.get("name", ""))
                         for e in events if e.get("cat") == "kernel")
                  for k in ("k1_rects", "k1_forward", "k2_backward")})
@@ -4012,7 +4010,7 @@ def check_trace(trace: dict, blocks: int, smi: str):
     log(f"phase 13 profile_dir (train_joint over the mesh, block 1 traced) "
         f"[{smi}]: {trace}")
     k = trace.get("kernels", {})
-    if not (trace["files"] == 1 and trace["block1"] and not trace["block0"]
+    if not (trace["files"] == 1 and trace["block_spans"] == 1
             and k["k1_forward"] == blocks and k["k2_backward"] == blocks):
         fail("phase 13 profile_dir: the trace lacks block 1's span or K1's "
              "and K2's launches, or holds block 0")

@@ -14,16 +14,24 @@ or `gaussians`; -1 = every local card): under torchrun N must equal
 WORLD_SIZE (or be -1); otherwise the CLI spawns the N ranks itself
 (parallel/launch.py). Rank r trains on cuda:r (NCCL), or on the CPU over
 gloo with `--device cpu`; rank 0 writes the artifacts.
+
+`--trace` switches the program's tracing on (utils/profiling.py: device
+times of its spans, the device marks of each step's phases) and writes
+`profiling.snapshot()` (spans, counters, phase table) to
+`<model>/trace.json` when training ends.
 """
 
 from __future__ import annotations
 
+import json
 from argparse import ArgumentParser
+from pathlib import Path
 
 from instantsplat_tpu_torch.parallel import launch, runtime
 from instantsplat_tpu_torch.pipelines import config as C
 from instantsplat_tpu_torch.pipelines.train_pipeline import run_training
 from instantsplat_tpu_torch.pipelines.trainer import TrainerConfig
+from instantsplat_tpu_torch.utils import profiling
 
 
 def build_parser() -> ArgumentParser:
@@ -52,6 +60,8 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--quiet", action="store_true")
+    # the program's tracing on; its table written to <model>/trace.json
+    parser.add_argument("--trace", action="store_true")
     # accepted for drop-in compatibility with reference train.py:305-310
     # and the JAX CLI, which ignore them too: documented no-ops
     parser.add_argument("--disable_viewer", action="store_true", default=True)
@@ -80,6 +90,8 @@ def main(argv=None):
             print(f"[train] iter {it}: loss={m['loss']:.5f} "
                   f"psnr={m['psnr']:.2f}", flush=True)
 
+    if args.trace:
+        profiling.enable(True)
     viewer = None
     if args.enable_viewer and main_rank:
         from instantsplat_tpu_torch.render.network_gui import NetworkGUI
@@ -101,6 +113,10 @@ def main(argv=None):
     finally:
         if viewer is not None:
             viewer.close()
+    if args.trace and main_rank:
+        path = Path(model.model_path) / "trace.json"
+        path.write_text(json.dumps(profiling.snapshot()))
+        print(f"[train] trace -> {path}")
     if main_rank:
         print(f"[train] done -> {model.model_path}")
     return params, history

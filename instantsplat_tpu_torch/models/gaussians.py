@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from instantsplat_tpu_torch.ops.knn import mean_knn_dist2
+from instantsplat_tpu_torch.utils import profiling
 from instantsplat_tpu_torch.utils import sh as SH
 from instantsplat_tpu_torch.utils import transforms as T
 
@@ -78,6 +79,7 @@ class GaussianModel:
         return [getattr(self, f) for f in PARAM_FIELDS]
 
     @classmethod
+    @profiling.spanned("train.init")
     def create_from_pcd(
         cls,
         points: np.ndarray,
@@ -90,7 +92,8 @@ class GaussianModel:
     ) -> "GaussianModel":
         """DC SH from RGB, zero higher bands, isotropic log-scale from
         sqrt(mean 3-NN squared distance) (or `scale_override`), identity
-        rotation, opacity `init_opacity`."""
+        rotation, opacity `init_opacity`. Spans `train.init`, and
+        `train.knn` inside it (utils/profiling.py)."""
         pts = torch.as_tensor(np.array(points, np.float32), device=device)
         n = pts.shape[0]
         cols = torch.as_tensor(np.array(colors, np.float32), device=device)
@@ -101,7 +104,8 @@ class GaussianModel:
             s = torch.log(torch.as_tensor(
                 np.asarray(scale_override, np.float32), device=device))
         else:
-            s = torch.log(torch.sqrt(mean_knn_dist2(pts, k=3)))
+            with profiling.annotate("train.knn"):
+                s = torch.log(torch.sqrt(mean_knn_dist2(pts, k=3)))
         scales = s[:, None].repeat(1, 3)
         rots = torch.zeros((n, 4), device=device)
         rots[:, 0] = 1.0

@@ -7,7 +7,8 @@ share compositor.cuh; an edited header must not load a stale library) and
 of the flags, and loads it. The
 compiler's `-Xptxas -v` report (registers, shared memory, spills) is kept
 beside the library. A missing nvcc or a failed build raises; nothing falls
-back to another implementation.
+back to another implementation. Each compile (not a cached library)
+counts in the counter `cuda_build.builds` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from instantsplat_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
@@ -72,6 +75,7 @@ def build(source: str) -> Path:
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     Path(str(out) + ".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    profiling.count("cuda_build.builds")
     return out
 
 

@@ -18,6 +18,11 @@ writes the artifacts and the scalar log.
 Checkpoints use the JAX stage's npz keys (p_*, m_*, v_*, step,
 per_point_lr, max_sh_degree, iteration), so each package resumes from the
 other's.
+
+Spans (utils/profiling.py): `train.run` (the whole call), `train.read`
+(the scene), `train.joint` (trainer.train_joint), `train.write` (the
+artifacts written before and after training); `train.init` and
+`train.knn` come from GaussianModel.create_from_pcd.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from instantsplat_tpu_torch.opt.gaussian_opt import (
 from instantsplat_tpu_torch.parallel.runtime import is_main_process
 from instantsplat_tpu_torch.pipelines.config import ModelParams, save_cfg_args
 from instantsplat_tpu_torch.pipelines.trainer import TrainerConfig, train_joint
+from instantsplat_tpu_torch.utils import profiling
 from instantsplat_tpu_torch.utils import transforms as T
 from instantsplat_tpu_torch.utils.logging import (
     ScalarLogger,
@@ -113,6 +119,7 @@ def _write_cameras_json(model_path: Path, info):
         json.dump(json_cams, f)
 
 
+@profiling.spanned("train.run")
 def run_training(model: ModelParams, opt: OptimizationConfig,
                  trainer: TrainerConfig, save_iterations=None,
                  checkpoint_iterations=(), progress_cb=None,
@@ -133,11 +140,12 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
         [trainer.iterations] if save_iterations is None
         else list(save_iterations) + [trainer.iterations]))
 
-    info = scene_io.read_scene(
-        model.source_path, model.n_views, images_dir=model.images,
-        resolution_scale=(1.0 if model.resolution in (-1, 1)
-                          else float(model.resolution)),
-        device=dev)
+    with profiling.annotate("train.read"):
+        info = scene_io.read_scene(
+            model.source_path, model.n_views, images_dir=model.images,
+            resolution_scale=(1.0 if model.resolution in (-1, 1)
+                              else float(model.resolution)),
+            device=dev)
     cam_poses = GaussianModel.init_cam_poses_from_w2c(info.poses_w2c)
     scale_override = None
     if model.init_scale_from_view_depth:
@@ -161,13 +169,15 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
             confidence_lr = confidence_to_lr(conf).numpy()
 
     if writer:
-        if Path(info.ply_path).exists():
-            shutil.copyfile(info.ply_path, model_path / "input.ply")
-        _write_cameras_json(model_path, info)
-        for it in save_iterations:
-            pdir = model_path / "pose" / f"ours_{it}"
-            pdir.mkdir(parents=True, exist_ok=True)
-            np.save(pdir / "pose_org.npy", poses_7_to_w2c(params.cam_poses))
+        with profiling.annotate("train.write"):
+            if Path(info.ply_path).exists():
+                shutil.copyfile(info.ply_path, model_path / "input.ply")
+            _write_cameras_json(model_path, info)
+            for it in save_iterations:
+                pdir = model_path / "pose" / f"ours_{it}"
+                pdir.mkdir(parents=True, exist_ok=True)
+                np.save(pdir / "pose_org.npy",
+                        poses_7_to_w2c(params.cam_poses))
 
     opt_state0, first_iter = None, 0
     if start_checkpoint:
@@ -191,11 +201,13 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
 
     t0 = time.time()
     try:
-        params, opt_state, history = train_joint(
-            params, info.cameras, opt_cfg=opt, trainer_cfg=trainer,
-            spatial_lr_scale=info.nerf_radius, confidence_lr=confidence_lr,
-            progress_cb=_cb, opt_state=opt_state0, first_iter=first_iter,
-            live_ref=params_ref, viewer=viewer, mesh=mesh)
+        with profiling.annotate("train.joint"):
+            params, opt_state, history = train_joint(
+                params, info.cameras, opt_cfg=opt, trainer_cfg=trainer,
+                spatial_lr_scale=info.nerf_radius,
+                confidence_lr=confidence_lr, progress_cb=_cb,
+                opt_state=opt_state0, first_iter=first_iter,
+                live_ref=params_ref, viewer=viewer, mesh=mesh)
     finally:
         if logger is not None:
             logger.close()
@@ -203,15 +215,17 @@ def run_training(model: ModelParams, opt: OptimizationConfig,
         return params, history
     scene_io.save_time(model_path, "[2] train_joint", time.time() - t0)
 
-    for it in save_iterations:
-        ply.save_gaussian_ply(model_path / "point_cloud" / f"iteration_{it}"
-                              / "point_cloud.ply", params)
-        np.save(model_path / "pose" / f"ours_{it}" / "pose_optimized.npy",
-                poses_7_to_w2c(params.cam_poses))
-    for it in checkpoint_iterations:
-        save_checkpoint(model_path / "ckpt" / f"chkpnt{it}.npz", params,
-                        opt_state, it)
-    save_cfg_args(model_path, Namespace(**dataclasses.asdict(model)))
+    with profiling.annotate("train.write"):
+        for it in save_iterations:
+            ply.save_gaussian_ply(model_path / "point_cloud"
+                                  / f"iteration_{it}" / "point_cloud.ply",
+                                  params)
+            np.save(model_path / "pose" / f"ours_{it}"
+                    / "pose_optimized.npy", poses_7_to_w2c(params.cam_poses))
+        for it in checkpoint_iterations:
+            save_checkpoint(model_path / "ckpt" / f"chkpnt{it}.npz", params,
+                            opt_state, it)
+        save_cfg_args(model_path, Namespace(**dataclasses.asdict(model)))
     return params, history
 
 

@@ -33,11 +33,23 @@ view order and broadcasts it (a block's view table, on the device), and
 one pending viewer request (_serve_viewer). With
 `TrainerConfig.profile_dir`, block 1 (replays, on a card) runs under a
 torch.profiler trace written there (utils/profiling.py), as JAX traces
-its second block; every block is an `annotate` span.
+its second block.
+
+What the loop records (utils/profiling.py): the spans `train.block` (each
+block), `train.probe` (the auto probe's and a re-probe's sizing and
+blocks; `train.size_caps` inside `_binned_candidate`), `train.upload`
+(a block's view and Adam tables), `train.marks` (their read, tracing
+on), `train.log` (the metrics' read and progress_cb at a log); the
+counters `train.iterations.<family>` (by backend family, `eager` for the
+eager loop), `train.reprobes`, `train.resizes`, `train.switches`. With
+tracing on, each make_train_scan block marks its start and each step its
+STEP_MARKS on the device, and the block's end adds its PHASES to the
+phase table.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -67,6 +79,29 @@ from instantsplat_tpu_torch.utils import profiling
 from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, to_device
 
 _log = logging.getLogger(__name__)
+
+# the device marks of a traced make_train_scan step, in stream order: its
+# start; the front end's columns (ops/frontend.py); the render (depth sort,
+# lists, compositor, composite_out); photometric_loss; the gradient
+# reaching rgb (the loss backward done); the gradient reaching the packed
+# splats (the raster backward done; no such hook on the sharded render);
+# autograd.grad's return (front end and pose backward done); PSNR; Adam
+STEP_MARKS = ("start", "frontend", "render", "loss", "loss_bwd",
+              "raster_bwd", "grad", "metrics", "adam")
+# the marks table's columns: the block's own start (row 0 only, launched
+# before its tables are uploaded), then the step's
+MARKS = ("block",) + STEP_MARKS
+# the phases that the marks cut a block into, each the (from, to) mark
+# intervals it sums; with replay_gap's intervals from one step's last mark
+# to the next step's first (profiling.add_step_marks) they cover the block
+# once. A missing mark joins its interval to the next: without the packed
+# hook `raster` holds the front end's backward
+PHASES = {"frontend": (("start", "frontend"), ("raster_bwd", "grad")),
+          "raster": (("frontend", "render"), ("loss_bwd", "raster_bwd")),
+          "loss": (("render", "loss"), ("loss", "loss_bwd"),
+                   ("grad", "metrics")),
+          "adam": (("metrics", "adam"),),
+          "replay_gap": (("block", "start"),)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,14 +157,19 @@ def _step_metrics(params: GaussianModel, cam: Camera, pose, bg,
         t.requires_grad_(True)
     rgb = _render_rgb(params, cam, pose(), bg, active_sh, chunk, backend,
                       mesh, shard_axis)
+    profiling.mark("render")
+    profiling.mark_grad(rgb, "loss_bwd")
     loss, aux = photometric_loss(rgb, cam.image, lambda_dssim)
+    profiling.mark("loss")
     grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+    profiling.mark("grad")
     for t in tensors:
         t.requires_grad_(False)
     grads = {name: (torch.zeros_like(t) if g is None else g)
              for name, t, g in zip(PARAM_FIELDS, tensors, grads)}
     with torch.no_grad():
         aux["psnr"] = psnr(rgb, cam.image)
+    profiling.mark("metrics")
     return grads, dict(loss=loss.detach(), l1=aux["l1"].detach(),
                        ssim=aux["ssim"].detach(), psnr=aux["psnr"])
 
@@ -165,8 +205,13 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
     is captured into a CUDA graph, and every later iteration is a replay
     (utils/cuda_graphs.StepLoop). A graph is kept per (active_sh, the
     demoted capacity signatures for a capacity backend, the tensors'
-    storage), all in one memory pool (`pool`, or one of this block
-    function's own). On the CPU the same step runs in a Python loop.
+    storage, whether tracing is on), all in one memory pool (`pool`, or
+    one of this block function's own). On the CPU the same step runs in a
+    Python loop. With tracing on (utils/profiling.enable) the block marks
+    its start and each step its STEP_MARKS into a table beside the view
+    ids, and the block's end reads the block's rows (one copy to the host)
+    into the phase table under ("make_train_scan", the backend's family);
+    off, nothing is marked and no hook registered.
     With a mesh the graph holds the sharded render's collectives (NCCL),
     and the block's view ids are rank 0's, broadcast on the device once a
     block.
@@ -178,6 +223,7 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
     groups = () if mesh is None else [mesh.get_group(name) for name in
                                       mesh.mesh_dim_names]
     blocks: dict = {}
+    family = backend.split(":")[0]
 
     def statics(params, opt_state, k: int, active_sh: int):
         """(the loop, its tensors) of this block's key, with room for k
@@ -186,24 +232,30 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
                and frozenset(driver._guard.demoted),
                tuple(t.data_ptr() for t in params.tensors()
                      + list(opt_state.m.values())
-                     + list(opt_state.v.values())))
+                     + list(opt_state.v.values())),
+               profiling.enabled())
         if key not in blocks:
             blocks.clear()  # a stale key's graph is never replayed again
             # the step's tensors: `step` holds them, never the loop (no
             # reference cycle keeps a dead graph for the cyclic collector)
             bufs = SimpleNamespace(cap=0, counter=torch.zeros(
-                1, dtype=torch.int64, device=dev))
+                1, dtype=torch.int64, device=dev), marks=None,
+                traced=key[-1])
 
             def step():
                 i = bufs.counter
-                cam = gather_camera(cameras, bufs.views.index_select(0, i))
-                grads, metrics = _step_metrics(
-                    params, cam,
-                    lambda: params.cam_poses.index_select(0, cam.uid)[0],
-                    bg, active_sh, lambda_dssim, backend, chunk, mesh,
-                    shard_axis)
-                optimizer.apply_step(params, grads, opt_state,
-                                     bufs.table.index_select(0, i)[0])
+                with profiling.marking(bufs.marks, i):
+                    profiling.mark("start")
+                    cam = gather_camera(cameras,
+                                        bufs.views.index_select(0, i))
+                    grads, metrics = _step_metrics(
+                        params, cam,
+                        lambda: params.cam_poses.index_select(0, cam.uid)[0],
+                        bg, active_sh, lambda_dssim, backend, chunk, mesh,
+                        shard_axis)
+                    optimizer.apply_step(params, grads, opt_state,
+                                         bufs.table.index_select(0, i)[0])
+                    profiling.mark("adam")
                 i.add_(1)
                 return metrics
 
@@ -215,25 +267,35 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
             bufs.views = torch.zeros(cap, dtype=torch.int64, device=dev)
             bufs.table = torch.zeros((cap, len(PARAM_FIELDS) + 1),
                                      device=dev)
+            if bufs.traced:
+                bufs.marks = profiling.StepMarks(MARKS, cap, dev)
             loop.reset_graph()
         return loop, bufs
 
     def train_block(params, opt_state, view_ids, iterations, active_sh: int):
         k = len(iterations)
         loop, bufs = statics(params, opt_state, k, active_sh)
-        bufs.table[:k].copy_(to_device(optimizer.step_scalars(
-            iterations, opt_state.step + 1), dev))
-        bufs.views[:k].copy_(to_device(np.asarray(view_ids), dev,
-                                       torch.int64))
-        if mesh is not None:  # rank 0's view order on every rank
-            import torch.distributed as dist
+        with profiling.annotate("train.upload"):
+            bufs.counter.zero_()
+            with profiling.marking(bufs.marks, bufs.counter):
+                profiling.mark("block")
+            bufs.table[:k].copy_(to_device(optimizer.step_scalars(
+                iterations, opt_state.step + 1), dev))
+            bufs.views[:k].copy_(to_device(np.asarray(view_ids), dev,
+                                           torch.int64))
+            if mesh is not None:  # rank 0's view order on every rank
+                import torch.distributed as dist
 
-            dist.broadcast(bufs.views[:k],
-                           dist.get_global_rank(groups[0], 0),
-                           group=groups[0])
-        bufs.counter.zero_()
+                dist.broadcast(bufs.views[:k],
+                               dist.get_global_rank(groups[0], 0),
+                               group=groups[0])
         metrics = loop.run(k)
         opt_state.step += k
+        if bufs.marks is not None:
+            with profiling.annotate("train.marks"):
+                profiling.add_step_marks(
+                    "make_train_scan", family,
+                    bufs.marks.times[:k].cpu().numpy(), MARKS, PHASES)
         return params, opt_state, {n: v.clone() for n, v in metrics.items()}
 
     return train_block
@@ -281,10 +343,11 @@ def _binned_candidate(params, camera, pose=None) -> Optional[str]:
     if pose is None:
         pose = params.get_pose(0)
     try:
-        cand = _tiled_candidate(params, camera, pose)
-        if cand is not None:
-            return cand
-        cf, dl = binned_view_requirements(params, pose, camera)
+        with profiling.annotate("train.size_caps"):
+            cand = _tiled_candidate(params, camera, pose)
+            if cand is not None:
+                return cand
+            cf, dl = binned_view_requirements(params, pose, camera)
         if cf > _MAX_BINNED_CAP_FACTOR or dl > _MAX_BINNED_D_LEVELS:
             return None
         return f"pallas-binned:{cf}:{dl}"
@@ -422,7 +485,8 @@ def train_joint(
     if cur_name == "auto":
         cur_name = "pallas"
         if not mixed_shapes and mesh is None:
-            alt_name = _binned_candidate(params, cameras[0])
+            with profiling.annotate("train.probe"):
+                alt_name = _binned_candidate(params, cameras[0])
     probe = max(1, min(10, log_every))
     # None while the first probe runs (blocks of `probe`), then log_every
     block_cap: Optional[int] = None if alt_name is not None else log_every
@@ -452,12 +516,14 @@ def train_joint(
                            else None)
             start_timing = True
             if binned_side is not None:
-                fresh = _binned_candidate(params, cameras[0])
+                with profiling.annotate("train.probe"):
+                    fresh = _binned_candidate(params, cameras[0])
                 old = cur_name if binned_side == "cur" else alt_name
                 if fresh is None:
                     if binned_side == "cur":
                         cur_name, alt_name = alt_name, cur_name
                         name = cur_name
+                        profiling.count("train.switches")
                         print("[train] backend auto: demoting binned at "
                               f"iter {it} — required capacities now "
                               "unreasonable for this scene", flush=True)
@@ -467,19 +533,27 @@ def train_joint(
                         cur_name = name = fresh
                     else:
                         alt_name = fresh
+                    profiling.count("train.resizes")
                     print(f"[train] backend auto: binned capacities resized "
                           f"{old} -> {fresh} at iter {it}", flush=True)
             if start_timing:
                 reprobe_state = 1
+                profiling.count("train.reprobes")
             else:
                 next_reprobe = it + _REPROBE_EVERY
         if reprobe_state == 2:
             name = alt_name
         timed = (block_cap is None and block_idx in (1, 3)) or reprobe_state
         active_sh = min(it // interval, params.max_sh_degree)
+        profiling.count("train.iterations."
+                        + (name.split(":")[0] if use_scan else "eager"),
+                        end - it + 1)
         with profiling.profile_trace(trainer_cfg.profile_dir,
                                      enabled=block_idx == 1), \
-                profiling.annotate(f"train_joint block {it}-{end}"):
+                (profiling.annotate("train.probe")
+                 if block_cap is None or reprobe_state
+                 else contextlib.nullcontext()), \
+                profiling.annotate("train.block"):
             # the clock is read inside the traced region: the trace's start,
             # stop and export (block 1 under profile_dir) stay out of the
             # auto probe's time
@@ -513,6 +587,7 @@ def train_joint(
         elif reprobe_state == 2:
             if per_iter < _SWITCH_SHARE * per_cur_probe:
                 cur_name, alt_name = alt_name, cur_name
+                profiling.count("train.switches")
                 print(f"[train] backend auto: switching at iter {it} — "
                       f"other backend {per_iter * 1e3:.0f} ms/iter beats "
                       f"current {per_cur_probe * 1e3:.0f}", flush=True)
@@ -533,13 +608,14 @@ def train_joint(
             block_cap = log_every
         block_idx += 1
         if end % log_every == 0 or end == trainer_cfg.iterations:
-            m = {k: float(v) for k, v in metrics.items()}
-            m["elapsed_s"] = time.time() - t0
-            history.append((end, m))
-            if live_ref is not None:
-                live_ref[0] = params
-            if progress_cb is not None:
-                progress_cb(end, m)
+            with profiling.annotate("train.log"):
+                m = {k: float(v) for k, v in metrics.items()}
+                m["elapsed_s"] = time.time() - t0
+                history.append((end, m))
+                if live_ref is not None:
+                    live_ref[0] = params
+                if progress_cb is not None:
+                    progress_cb(end, m)
         it = end + 1
     return params, opt_state, history
 

@@ -22,6 +22,10 @@ warning, since the dense kernels never drop a splat. Inside a block of
 steps that runs from a captured CUDA graph (utils/cuda_graphs.StepLoop),
 nothing is read: every call ORs its lists' flag into a device tensor,
 read once at the block's end (`recording_overflow`, `settle_overflow`).
+Each demotion counts in the counter `render.demotions`
+(utils/profiling.py). Inside a traced loop step the render marks the end
+of the front end's columns ("frontend") and, in the backward, the
+gradient reaching the packed splats ("raster_bwd").
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from instantsplat_tpu_torch.ops.frontend import compute_columns
 from instantsplat_tpu_torch.ops.rasterize import composite_out
 from instantsplat_tpu_torch.ops.rasterize_lists import (composite_lists,
                                                         splat_valid)
+from instantsplat_tpu_torch.utils import profiling
 
 # Finite "invalid" depth sentinel: sorts after every real depth, and a zero
 # compositing weight times it stays zero (inf would give 0 * inf = NaN).
@@ -65,6 +70,7 @@ def prepare_packed_splats(gaussians, pose, fx, fy, cx, cy, scale_modifier,
     order is deterministic; tied invalid rows contribute nothing."""
     cols = compute_columns(gaussians, pose, fx, fy, cx, cy, scale_modifier,
                            active_sh_degree, height, width)
+    profiling.mark("frontend")
     key = torch.where(cols.valid, cols.depth,
                       torch.full_like(cols.depth, _INVALID_DEPTH))
     lo_m = torch.where(cols.valid, cols.log_op,
@@ -158,6 +164,7 @@ class _OverflowGuard:
         self.calls[key] = n + 1
         if n % _BINNED_CHECK_EVERY == 0 and bool(overflow_fn()):
             self.demoted.add(key)
+            profiling.count("render.demotions")
             warn()
             return True
         return False
@@ -189,6 +196,7 @@ def settle_overflow(flags: dict) -> bool:
     for key, overflowed in zip(keys, hit):
         if overflowed:
             _guard.demoted.add(key)
+            profiling.count("render.demotions")
             _guard.warnings[key]()
     return any(hit)
 
@@ -326,6 +334,7 @@ def render(gaussians, camera, pose: Optional[torch.Tensor] = None,
     packed, cols = prepare_packed_splats(
         gaussians, pose, camera.fx, camera.fy, camera.cx, camera.cy,
         scale_modifier, active_sh_degree, h, w)
+    profiling.mark_grad(packed, "raster_bwd")
     recorded = None
     if _guard.flags is not None and backend.startswith(
             ("pallas-binned", "pallas-tiled")):

@@ -22,6 +22,11 @@ The capacity backends' overflow guard (render/driver.py) ORs each call's
 overflow flag into the loop's `flags` while a block runs; the flags are
 read once, at the block's end, where overflowing signatures are demoted.
 
+Spans (utils/profiling.py): `steploop.warmup` (the eager steps on the side
+stream), `steploop.capture`, `steploop.replay` (the replays' launches),
+`steploop.loop` (the CPU's Python loop), `steploop.settle` (the overflow
+flags' read); the counter `steploop.captures`.
+
 What the loops share:
 - `StepTable`: a loop's per-step scalars (learning rates, bias
   corrections, schedule factors) as one float32 device table, read by a
@@ -43,6 +48,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from instantsplat_tpu_torch.utils import profiling
 
 WARMUP = 3  # eager steps on a side stream before a loop's first capture
 _SIDE: dict = {}  # device -> the warm-up stream every loop shares
@@ -194,8 +201,13 @@ class StepLoop:
         for f in self.flags.values():
             f.zero_()
         with driver.recording_overflow(self.flags):
-            out = self._run(n) if self.captured else self._loop(n)
-        driver.settle_overflow(self.flags)
+            if self.captured:
+                out = self._run(n)
+            else:
+                with profiling.annotate("steploop.loop"):
+                    out = self._loop(n)
+        with profiling.annotate("steploop.settle"):
+            driver.settle_overflow(self.flags)
         return out
 
     def _loop(self, n: int):
@@ -211,16 +223,19 @@ class StepLoop:
             main = torch.cuda.current_stream(self.device)
             side = _side_stream(self.device)
             side.wait_stream(main)
-            with torch.cuda.stream(side):
+            with profiling.annotate("steploop.warmup"), \
+                    torch.cuda.stream(side):
                 out = self._loop(done)
             main.wait_stream(side)
             self.warm += done
         if done == n:
             return out
         if self.graph is None:
-            self._capture()
-        for _ in range(n - done):
-            self.graph.replay()
+            with profiling.annotate("steploop.capture"):
+                self._capture()
+        with profiling.annotate("steploop.replay"):
+            for _ in range(n - done):
+                self.graph.replay()
         StepLoop.replays += n - done
         for kernel, k in self.per_replay.items():
             kernel.replayed(k * (n - done))
@@ -252,3 +267,4 @@ class StepLoop:
                 gc.enable()
         self.per_replay = {k: k.captured for k in _kernels() if k.captured}
         self.graph, self.out = graph, out
+        profiling.count("steploop.captures")

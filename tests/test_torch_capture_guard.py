@@ -38,6 +38,7 @@ from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
 from instantsplat_tpu_torch.parallel import launch
 from instantsplat_tpu_torch.pipelines import trainer as tr
 from instantsplat_tpu_torch.pipelines.render_pipeline import make_pose_refiner
+from instantsplat_tpu_torch.utils import profiling
 from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
 from torch_host_reads import HostRead, guarded_loops, no_host_reads
 from torch_init_cases import aligner_case, attach_world_desc, sparse_scene
@@ -76,21 +77,32 @@ def tiny(tmp_path_factory):
     return info, g
 
 
+@pytest.mark.parametrize("traced", [False, True])
 @pytest.mark.parametrize("backend", ["pallas", "capacity"])
-def test_train_scan_blocks_read_nothing(tiny, backend):
+def test_train_scan_blocks_read_nothing(tiny, backend, traced):
+    """With tracing on (utils/profiling.enable) the steps' device marks
+    and gradient hooks read nothing on the host either."""
     info, g0 = tiny
     g = g0.replace(**{f: getattr(g0, f).clone() for f in PARAM_FIELDS})
     if backend == "capacity":
         backend = tr._binned_candidate(g, info.cameras[0])
         assert backend is not None
-    with guarded_loops() as guarded:
-        tr.train_joint(g, info.cameras,
-                       OptimizationConfig(pp_optimizer=True,
-                                          optim_pose=True),
-                       tr.TrainerConfig(iterations=8, backend=backend,
-                                        log_every=8),
-                       spatial_lr_scale=info.nerf_radius)
+    profiling.reset()
+    profiling.enable(traced)
+    try:
+        with guarded_loops() as guarded:
+            tr.train_joint(g, info.cameras,
+                           OptimizationConfig(pp_optimizer=True,
+                                              optim_pose=True),
+                           tr.TrainerConfig(iterations=8, backend=backend,
+                                            log_every=8),
+                           spatial_lr_scale=info.nerf_radius)
+        phases = profiling.snapshot()["phases"]
+    finally:
+        profiling.enable(False)
+        profiling.reset()
     assert guarded == {"make_train_scan": 8 - WARMUP}
+    assert bool(phases) == traced
 
 
 def test_refiner_reads_nothing():

@@ -8,8 +8,9 @@ densification followed by a dense train step on the card, and
 cli.pretrain's TINY training step (float32 card against CPU, bf16, a
 checkpoint round trip), and the captured training blocks
 (make_train_scan): replays against eager steps, no host sync in a
-replayed block, and a step with a host read failing its capture. Run
-them on a machine with a card:
+replayed block, a step with a host read failing its capture, and the
+traced step, whose graph differs by its device marks alone. Run them on
+a machine with a card:
 
     python -m pytest tests/ -m gpu -q
 
@@ -908,3 +909,81 @@ def test_host_read_in_a_step_makes_capture_raise(cuda, monkeypatch):
                                0.2, "pallas", 256)
     with pytest.raises(RuntimeError, match="make_train_scan"):
         block(g, state, [0] * (WARMUP + 2), range(1, WARMUP + 3), 0)
+
+
+def test_trace_marks_are_the_only_difference(cuda, tmp_path, monkeypatch):
+    """Tracing on (utils/profiling.enable) changes the captured step by its
+    marks alone: one replay's kernels in a torch.profiler trace number
+    exactly len(STEP_MARKS) more than with tracing off, and the launches
+    a replay makes (StepLoop.per_replay) are the same but for trace_mark's
+    len(STEP_MARKS). One capture each. The untraced graph compared is
+    the second one captured: the first of a process carried 80 kernels
+    more on the card (H100, PyTorch 2.11), traced or not. A traced
+    block's phases and gaps sum to its CUDA-event time (events around the
+    block call; the block's own mark is launched as it starts) within
+    3%."""
+    import json
+
+    from instantsplat_tpu_torch.pipelines.trainer import (STEP_MARKS,
+                                                          make_train_scan)
+    from instantsplat_tpu_torch.utils import profiling
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    g, cam, stacked, opt, state, _, _ = _scan_case(cuda, total=300)
+    bg = torch.zeros(3, device=cuda)
+    loops = []
+    real = StepLoop._capture
+    monkeypatch.setattr(StepLoop, "_capture",
+                        lambda self: (loops.append(self), real(self))[1])
+    kernels, per_replay, blocks, it = {}, {}, {}, 1
+    try:
+        for traced in (False, True, False):
+            profiling.reset()
+            profiling.enable(traced)
+            block = blocks[traced] = make_train_scan(opt, stacked, bg, 0.2,
+                                                     "pallas", 256)
+            block(g, state, [0] * (WARMUP + 1), range(it, it + WARMUP + 1), 0)
+            it += WARMUP + 1
+            assert profiling.snapshot()["counters"]["steploop.captures"] == 1
+            loop = loops[-1]
+            per_replay[traced] = {k.name: n
+                                  for k, n in loop.per_replay.items()}
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                loop.graph.replay()
+                torch.cuda.synchronize()
+            path = tmp_path / f"replay{int(traced)}.json"
+            prof.export_chrome_trace(str(path))
+            kernels[traced] = sorted(
+                e["name"] for e in json.loads(path.read_text())[
+                    "traceEvents"] if e.get("cat") == "kernel")
+        marks = [n for n in kernels[True] if "trace_mark" in n]
+        rest = [n for n in kernels[True] if "trace_mark" not in n]
+        assert (len(kernels[False]), len(marks)) == (
+            len(rest), len(STEP_MARKS)), (len(kernels[False]), len(rest),
+                                          len(marks))
+        assert rest == kernels[False]
+        assert per_replay[True].pop("trace_mark") == len(STEP_MARKS)
+        assert per_replay[True] == per_replay[False]
+        k = 100
+        profiling.enable(True)  # the traced graph again
+        profiling.reset()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda.synchronize()
+        start.record()
+        blocks[True](g, state, [0] * k, range(it, it + k), 0)
+        end.record()
+        torch.cuda.synchronize()
+        snap = profiling.snapshot()
+        assert "steploop.capture" not in snap["spans"]
+        phases = snap["phases"]["make_train_scan"]["pallas"]
+        assert {n: p["steps"] for n, p in phases.items()} == dict.fromkeys(
+            ("frontend", "raster", "loss", "adam", "replay_gap"), k)
+        assert all(p["seconds"] > 0 for p in phases.values()), phases
+        total = sum(p["seconds"] for p in phases.values())
+        wall = start.elapsed_time(end) * 1e-3
+        assert total == pytest.approx(wall, rel=0.03), (phases, wall)
+    finally:
+        profiling.enable(False)
+        profiling.reset()
