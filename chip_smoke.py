@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sm_90a, one nvcc per source, started together: rasterize.cu (KR, the
    rectangle pass k1_rects; K1 dense forward; K2 dense backward) and
    rasterize_lists.cu (K3/K4 binned, K5/K6 tiled), which share
-   compositor.cuh; print ptxas's report.
+   compositor.cuh, and knn.cu (knn3, the initial scales' KNN); print
+   ptxas's report.
 3. Kernel against plain version at the golden-case shape (64x48, 400
    splats) and a ragged mid size (250x187, 20k splats), for the dense
    kernels and for the binned and tiled ones at capacities sized for the
@@ -44,7 +45,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one (this scene's splats grow ~5x in 200 iterations), plus a margin.
    K5 and K6, or K3 and K4, launch 200 times each, and so does KR, which
    runs in front of them too; a demotion by the overflow guard fails the
-   run. A second dense run measures the
+   run. Each run launches knn3 exactly once (create_from_pcd's initial
+   scales). A second dense run measures the
    run-to-run spread. Every loss must fall and each curve must stay within
    LOSS_RTOL of the dense run's.
 5. At the training shape, with the trained scene: each kernel against the
@@ -63,7 +65,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    contributing pairs before (every pixel of a segment walks its whole
    list) and after (the 8x4 blocks a fetched entry's block mask marks), and
    the first design's times beside the new ones. Then 10 iterations of the
-   dense, the binned and the tiled path under torch.profiler.
+   dense, the binned and the tiled path under torch.profiler. Then knn3
+   (csrc/knn.cu) at the benchmark's two derived clouds
+   (benchmark/scenes/relief.py: 431,795 points of 3 views and 1,429,807 of
+   12): one launch a call, against the plain version (chunked cdist + topk
+   + the exact pass) at rtol 1e-6, its time by CUDA events beside the
+   plain version's, the library's search alone (chunked torch.cdist +
+   torch.topk, no exact pass) and the bound (N (N - 1) pairs x 8
+   operations over 67 TFLOP/s).
 6. Stages 3 and 5 on the model of phase 4's first dense run, through
    instantsplat_tpu_torch.cli.render.main and cli.metrics.main: the train
    views; N_TEST_VIEWS test views, each refined from a start 2 degrees and
@@ -263,14 +272,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    checks each captured run's replays (all iterations but the first
    WARMUP of each graph).
 
-The last lines are one JSON object {"kernels": [...]} with seven entries
-(each with `launches`, from its own path's run in phase 4,
-`launches_phase8`, from phase 8's in-process runs: its subprocess stages
-count in their own processes, `launches_phase9`, from phase 9's
-densification check, `launches_phase10`, 0 for every kernel, and
+The last lines are one JSON object {"kernels": [...]} with nine entries,
+the nvidia-smi line, and {"ok": true, "device": {...}}. The seven
+compositor kernels' entries each hold `launches`, from its own path's
+run in phase 4, `launches_phase8`, from phase 8's in-process runs: its
+subprocess stages count in their own processes, `launches_phase9`, from
+phase 9's densification check, `launches_phase10`, 0 for every kernel, and
 `launches_phase11`, phase 11's in both of its processes, and
-`launches_phase12`, phase 12's, and `launches_phase13`, phase 13's), the
-nvidia-smi line, and {"ok": true, "device": {...}}. A launch is one on
+`launches_phase12`, phase 12's, and `launches_phase13`, phase 13's. The
+two knn3 entries, one a cloud, hold the same keys, `launches` from phase
+4's dense run (one), and besides `launches_phase5`, phase 5's own calls
+at that cloud, counted from 0. A launch is one on
 the device: a kernel launched by a replay of a captured CUDA graph counts
 once per replay (rasterize_pallas.Kernel.replayed); its wrapper, called
 while the graph was captured, launched nothing then.
@@ -303,7 +315,13 @@ KR_OPS_PER_SPLAT = 35
 TRAIN_ITERS = 200
 N_POINTS = 100_000
 H, W = 384, 512
-SOURCES = ("rasterize.cu", "rasterize_lists.cu")
+SOURCES = ("rasterize.cu", "rasterize_lists.cu", "knn.cu")
+# the benchmark's derived clouds (benchmark/traffic/train_{3,12}v.json at
+# 512x288): views, arc, the points stage 1 keeps
+KNN_CLOUDS = ((3, 0.15, 431_795), (12, 0.3, 1_429_807))
+# float operations per point pair in knn3: 3 differences, 3 products and
+# 2 sums (the compare against the third best not counted)
+KNN_OPS_PER_PAIR = 8
 # Loss curves of the other runs against the dense run: each logged loss
 # within 10% of the dense run's at the same iteration. Not tighter: the
 # backward kernels add with atomics in a varying order, and Adam (eps
@@ -945,13 +963,15 @@ def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
 
 
 def kernel_table():
-    """{name: Kernel} of the seven kernels, in order."""
+    """{name: Kernel} of the eight kernels, in order: the seven compositor
+    kernels, then knn3."""
+    from instantsplat_tpu_torch.ops import knn as KNN
     from instantsplat_tpu_torch.ops import rasterize_pallas as RP
     from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
     from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
 
     return {"KR": RP.KR, "K1": RP.K1, "K2": RP.K2, "K3": RB.K3, "K4": RB.K4,
-            "K5": RT.K5, "K6": RT.K6}
+            "K5": RT.K5, "K6": RT.K6, "knn3": KNN.KNN3}
 
 
 class _Tee:
@@ -980,8 +1000,8 @@ class _Warnings(logging.Handler):
 def run_cli(main, argv):
     """Run a CLI main with the launch counts set to 0 just before and read
     just after, each run with no capacity signature checked or demoted.
-    -> (what main returned, its stdout, seconds, launches {KR, K1..K6},
-    the overflow guard's demotion warnings)."""
+    -> (what main returned, its stdout, seconds, launches {KR, K1..K6,
+    knn3}, the overflow guard's demotion warnings)."""
     import torch
 
     from instantsplat_tpu_torch.render import driver
@@ -1009,7 +1029,7 @@ def run_cli(main, argv):
 
 def train_run(scene: Path, out: Path, backend: str, log_every: int):
     """One 200-iteration training run through the CLI. -> (params,
-    history, launches {KR, K1..K6}, seconds, the trainer's "backend auto"
+    history, launches {KR, K1..K6, knn3}, seconds, the trainer's "backend auto"
     lines, the overflow guard's demotion warnings, CUDA graph replays)."""
     from instantsplat_tpu_torch.cli import train as train_cli
     from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop
@@ -1027,8 +1047,9 @@ def train_run(scene: Path, out: Path, backend: str, log_every: int):
 
 def check_run(tag, history, launches, seconds, demotions, log_every,
               dense_losses=None):
-    """Losses finite and falling, the history complete, no demotion, and
-    (with dense_losses) the curve within LOSS_RTOL of the dense run's.
+    """Losses finite and falling, the history complete, no demotion, one
+    knn3 launch (the initial scales), and (with dense_losses) the curve
+    within LOSS_RTOL of the dense run's.
     -> steady ms/iter over the last 100 iterations."""
     losses = {it: m["loss"] for it, m in history}
     elapsed = {it: m["elapsed_s"] for it, m in history}
@@ -1048,6 +1069,8 @@ def check_run(tag, history, launches, seconds, demotions, log_every,
         fail(f"{tag}: non-finite loss")
     if not losses[its[-1]] < losses[its[0]]:
         fail(f"{tag}: the loss did not fall")
+    if launches["knn3"] != 1:
+        fail(f"{tag}: knn3 launched {launches['knn3']} times, expected once")
     if dense_losses is not None:
         rel = max(abs(losses[it] - dense_losses[it]) / dense_losses[it]
                   for it in its)
@@ -1234,6 +1257,76 @@ def training_shape(params, cam, dev, path_launches):
     return rows
 
 
+def knn_library(pts, chunk: int = 1024):
+    """The library's search alone, as the plain version makes it: chunked
+    torch.cdist and torch.topk of the 4 nearest (self first), the mean of
+    the other three squared (a yardstick of speed; the Gram form's
+    rounding is not refined)."""
+    import torch
+
+    out = []
+    for s in range(0, pts.shape[0], chunk):
+        d = torch.topk(torch.cdist(pts[s:s + chunk], pts), 4, dim=1,
+                       largest=False).values
+        out.append(d[:, 1:].square().mean(1))
+    return torch.cat(out)
+
+
+def knn_shape(dev, path_launches: int) -> list:
+    """Phase 5's knn3 rows at the benchmark's two derived clouds.
+    `path_launches`: knn3's launches in phase 4's dense run."""
+    import torch
+
+    from benchmark.scenes import relief
+    from instantsplat_tpu_torch.ops import knn as KNN
+
+    rows = []
+    for views, arc, n_want in KNN_CLOUDS:
+        xyz = relief.geometry(views, 288, 512, arc, 0.01).xyz
+        if len(xyz) != n_want:
+            fail(f"knn3: the {views}-view cloud has {len(xyz)} points, "
+                 f"expected {n_want}")
+        pts = torch.as_tensor(xyz, device=dev)
+        n = pts.shape[0]
+        KNN.KNN3.launches = 0
+        got = KNN.mean_knn_dist2(pts)
+        torch.cuda.synchronize()
+        if KNN.KNN3.launches != 1:
+            fail(f"knn3 at {n} points: {KNN.KNN3.launches} launches for one "
+                 "call")
+        kernel_ms = cuda_ms(lambda: KNN.mean_knn_dist2(pts), 3, 1)
+        if not torch.equal(KNN.mean_knn_dist2(pts), got):
+            fail(f"knn3 at {n} points: a second call differs")
+        plain = []
+        plain_ms = cuda_ms(lambda: plain.append(
+            KNN.mean_knn_dist2_plain(pts)), 1, 0)
+        rel = float(((got - plain[0]).abs() / plain[0]).max())
+        if rel > 1e-6:
+            fail(f"knn3 at {n} points: relative difference {rel:.3e} from "
+                 "the plain version (limit 1e-6)")
+        library_ms = cuda_ms(lambda: knn_library(pts), 1, 0)
+        pairs = n * (n - 1)
+        bound_ms = pairs * KNN_OPS_PER_PAIR / PEAK_F32_S * 1e3
+        log(f"knn3 at {n} points ({views} views): {kernel_ms:.2f} ms by "
+            f"CUDA events; plain version {plain_ms:.1f} ms, the library's "
+            f"search alone {library_ms:.1f} ms; bound {bound_ms:.2f} ms "
+            f"({pairs} pairs x {KNN_OPS_PER_PAIR} operations over 67 "
+            f"TFLOP/s) = {bound_ms / kernel_ms * 100:.1f}%; largest relative "
+            f"difference from the plain version {rel:.3e}")
+        rows.append(dict(
+            name=f"knn3 {views}v", route="cuda",
+            source="instantsplat_tpu_torch/csrc/knn.cu",
+            replaces="none (instantsplat_tpu/ops/knn.py: jnp chunked Gram "
+                     "+ lax.top_k)",
+            launches=path_launches, launches_phase5=KNN.KNN3.launches,
+            max_rel_err=rel, ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by="operations",
+            library_ms=library_ms))
+        del pts, got, plain
+        torch.cuda.empty_cache()
+    return rows
+
+
 def pose_error(w2c, gt_c2w) -> float:
     """How far a w2c pose is from the truth: the distance of its camera
     centre plus the arc its view direction sweeps at the surface's
@@ -1358,7 +1451,7 @@ def stages_3_and_5(scene: Path, model: Path, dev, smi: str):
         fail(f"render: PNG counts {counts}")
     fwd = 3 + v * REFINE_ITERS + v + FPS_RENDERS + 1
     want = {"KR": fwd, "K1": fwd, "K2": v * REFINE_ITERS, "K3": 0, "K4": 0,
-            "K5": 0, "K6": 0}
+            "K5": 0, "K6": 0, "knn3": 0}
     log(f"render: launches {launches} (expected {want}: 3 train renders, "
         f"{v} x {REFINE_ITERS} refinement steps, {v} test renders, "
         f"{FPS_RENDERS + 1} FPS renders)")
@@ -1762,7 +1855,8 @@ def stage_1(scene: Path, tmp: Path, dev, smi: str):
         f"{launches}")
     if not losses[-1] < losses[0]:
         fail("train on stage 1's output: the loss did not fall")
-    if any(launches[k] != STAGE1_TRAIN_ITERS for k in ("KR", "K1", "K2")):
+    if (any(launches[k] != STAGE1_TRAIN_ITERS for k in ("KR", "K1", "K2"))
+            or launches["knn3"] != 1):
         fail(f"train on stage 1's output: launches {launches}")
     cams = colmap.read_cameras_text(copies["oracle"] / "sparse_3" / "0"
                                     / "cameras.txt")
@@ -2091,10 +2185,11 @@ def stage_tools(oracle: Path, tmp: Path, dev, smi: str):
     want_launches = {"KR": VIEWER_ITERS + VIEWER_REQUESTS + sweeps,
                      "K1": VIEWER_ITERS + VIEWER_REQUESTS + sweeps,
                      "K2": VIEWER_ITERS,
-                     "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+                     "K3": 0, "K4": 0, "K5": 0, "K6": 0, "knn3": 1}
     if launches != want_launches:
         fail(f"viewer run: launches {launches} != {want_launches} (the "
-             "iterations, the viewer's renders and the sweep's)")
+             "iterations, the viewer's renders and the sweep's, and the "
+             "initial scales' KNN)")
     rows = [json.loads(ln) for ln in (tmp / "p8_viewer_model"
                                       / "scalars.jsonl").read_text()
             .splitlines()]
@@ -3989,15 +4084,19 @@ def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict,
 def read_trace(logdir: Path, blocks: int) -> dict:
     """The trace that TrainerConfig.profile_dir left in `logdir` (blocks
     of `blocks` iterations; block 1 traced): its files, size, events, the
-    number of `train.block` spans in it (one: block 1's alone), and its
-    kernel events of KR, K1 and K2."""
+    number of `train.block` spans on the host's track in it (one: block
+    1's alone; the profiler draws each span once more on the device's
+    track, as `gpu_user_annotation`), and its kernel events of KR, K1 and
+    K2."""
     files = sorted(logdir.glob("*.pt.trace.json"))
     if len(files) != 1:
         return dict(files=len(files))
     events = json.loads(files[0].read_text())["traceEvents"]
     return dict(
         files=1, mb=files[0].stat().st_size / 1e6, events=len(events),
-        block_spans=sum(e.get("name") == "train.block" for e in events),
+        block_spans=sum(e.get("name") == "train.block"
+                        and e.get("cat") != "gpu_user_annotation"
+                        for e in events),
         kernels={k: sum(f"{k}_kernel" in str(e.get("name", ""))
                         for e in events if e.get("cat") == "kernel")
                  for k in ("k1_rects", "k1_forward", "k2_backward")})
@@ -4633,11 +4732,11 @@ def main():
                 fail(f"training artifact missing: {rel}")
         if launches != {"KR": TRAIN_ITERS, "K1": TRAIN_ITERS,
                         "K2": TRAIN_ITERS, "K3": 0, "K4": 0, "K5": 0,
-                        "K6": 0}:
+                        "K6": 0, "knn3": 1}:
             fail(f"dense run: kernel launches {launches} != {TRAIN_ITERS} "
-                 "each of KR, K1 and K2")
+                 "each of KR, K1 and K2 and one of knn3")
         # launches of each kernel on its own path's run
-        path_launches = {k: launches[k] for k in ("KR", "K1", "K2")}
+        path_launches = {k: launches[k] for k in ("KR", "K1", "K2", "knn3")}
         dense_losses = {it: m["loss"] for it, m in history}
 
         p0, cams = initial_params(scene, dev)
@@ -4705,6 +4804,7 @@ def main():
         log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 5: the training shape, trained scene ------------------
         rows = training_shape(params, cam, dev, path_launches)
+        rows += knn_shape(dev, path_launches["knn3"])
 
         log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 6: stages 3 and 5 on the dense run's model ------------

@@ -6,7 +6,10 @@ counterpart. Plain tensor code is PyTorch; every Pallas kernel of the JAX
 package is hand-written CUDA for Hopper: the dense compositor
 (`csrc/rasterize.cu`, bound with ctypes in `ops/rasterize_pallas.py`) and
 the binned and tiled list compositors (`csrc/rasterize_lists.cu`,
-`ops/rasterize_lists.py`).
+`ops/rasterize_lists.py`). One kernel has no Pallas counterpart: the
+initial scales' KNN (`csrc/knn.cu`, `ops/knn.py`), which the JAX package
+leaves to plain jnp, written by hand because the plain chunked search
+took most of a large stage-2 scene on the H100.
 
 Ported so far: stage 1 (`cli.init_geo`: MASt3R pair inference, the
 global aligner, the `sparse_{n}` writer), stage 2 (`cli.train`, the joint

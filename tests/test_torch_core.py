@@ -20,6 +20,7 @@ from instantsplat_tpu_torch.models.gaussians import (
     PARAM_FIELDS,
     GaussianModel,
 )
+from instantsplat_tpu_torch.ops import knn as knn_ops
 from instantsplat_tpu_torch.ops.knn import mean_knn_dist2
 from instantsplat_tpu_torch.utils import schedules, sh
 from instantsplat_tpu_torch.utils import transforms as T
@@ -82,14 +83,43 @@ def test_expon_lr(kw):
         np.testing.assert_allclose(float(ours(s)), float(ref(s)), **TOL)
 
 
-@pytest.mark.parametrize("n,chunk", [(700, 1024), (1500, 256)])
-def test_mean_knn_dist2(n, chunk):
+@pytest.mark.parametrize("n,chunk,copies", [
+    pytest.param(700, 1024, 0, id="700-1024"),
+    pytest.param(1500, 256, 0, id="1500-256"),
+    pytest.param(4, 1024, 0, id="4-1024"),  # k + 1 points
+    # copied points: neighbours at distance 0, and twenty points with
+    # three of them (the 1e-7 floor)
+    pytest.param(900, 256, 120, id="900-256-copies"),
+])
+def test_mean_knn_dist2(n, chunk, copies):
     rng = np.random.default_rng(n)
     pts = (rng.normal(size=(n, 3)) * 0.5 + [1.0, -2.0, 3.0]).astype(
         np.float32)
+    if copies:
+        idx = rng.permutation(n)
+        pts[idx[copies:2 * copies]] = pts[idx[:copies]]  # pairs
+        four = idx[2 * copies:2 * copies + 20]  # five points four times
+        pts[four[5:]] = np.repeat(pts[four[:5]], 3, axis=0)
     got = mean_knn_dist2(torch.tensor(pts), k=3, chunk=chunk).numpy()
     want = np.asarray(jknn.mean_knn_dist2(jnp.asarray(pts), k=3))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+    if copies:
+        assert (got == np.float32(1e-7)).sum() == 20
+
+
+def test_mean_knn_dist2_on_the_cpu_launches_no_kernel(monkeypatch):
+    """A CPU tensor takes the plain version: knn3 (csrc/knn.cu) is neither
+    called nor counted."""
+    calls = []
+    monkeypatch.setattr(knn_ops.KNN3.__class__, "__call__",
+                        lambda self, *a: calls.append(a))
+    pts = torch.tensor(np.random.default_rng(5).normal(
+        size=(300, 3)).astype(np.float32))
+    before = knn_ops.KNN3.launches
+    got = knn_ops.mean_knn_dist2(pts)
+    assert calls == [] and knn_ops.KNN3.launches == before
+    torch.testing.assert_close(got, knn_ops.mean_knn_dist2_plain(pts),
+                               rtol=0, atol=0)
 
 
 def test_create_from_pcd_matches_jax():

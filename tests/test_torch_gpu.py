@@ -1,5 +1,6 @@
 """Tests that need the CUDA card: the kernels KR/K1/K2 (dense), K3/K4
-(binned) and K5/K6 (tiled) against their plain versions, the render
+(binned) and K5/K6 (tiled) against their plain versions, the KNN kernel
+knn3 against its plain version and a float64 brute force, the render
 paths on the card, stage 1's TINY MASt3R and golden aligner case on the
 card against the CPU, init_test_pose on the card against the CPU, a
 live viewer render on the card, and the sparse-alignment family:
@@ -24,6 +25,7 @@ import torch
 
 from instantsplat_tpu_torch.models.camera import Camera
 from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
+from instantsplat_tpu_torch.ops import knn as KNN
 from instantsplat_tpu_torch.ops import rasterize_lists as RL
 from instantsplat_tpu_torch.ops import rasterize_pallas as RP
 from instantsplat_tpu_torch.ops import rasterize_pallas_binned as RB
@@ -199,6 +201,65 @@ def test_train_step_launches_both_kernels(cuda):
         c + 1 for c in before_n)
     assert np.isfinite(float(m["loss"]))
     assert not torch.equal(before["xyz"], g.xyz)
+
+
+def _knn_cloud(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":  # 40 tight clusters; a tenth of the points
+        # copies of others (0-distance neighbours), some copied twice
+        centres = rng.normal(size=(40, 3))
+        pts = (centres[rng.integers(0, 40, n)]
+               + rng.normal(size=(n, 3)) * 0.01)
+        src = rng.choice(n, n // 10, replace=False)
+        dst = rng.choice(np.setdiff1d(np.arange(n), src), n // 10,
+                         replace=False)
+        pts[dst] = pts[src]
+        pts[dst[:n // 40]] = pts[src[-(n // 40):]]
+    else:  # "normal" near the origin, "far": centred 1e3 from it
+        pts = rng.normal(size=(n, 3)) * 0.5 + (
+            [1.0, -2.0, 3.0] if kind == "normal" else 1e3)
+    return pts.astype(np.float32)
+
+
+def _knn_brute_force(pts):
+    """float64 mean of the 3 smallest squared distances to other points,
+    over every pair, of the cloud centred in float32 as mean_knn_dist2
+    centres it."""
+    p = (pts - pts.mean(dim=0, keepdim=True)).double()
+    out = []
+    for s in range(0, p.shape[0], 1024):
+        d2 = ((p[s:s + 1024, None, :] - p[None]) ** 2).sum(-1)
+        rows = torch.arange(d2.shape[0], device=p.device)
+        d2[rows, rows + s] = float("inf")
+        out.append(torch.topk(d2, 3, dim=1, largest=False).values.mean(1))
+    return torch.clamp(torch.cat(out), min=1e-7)
+
+
+@pytest.mark.parametrize("kind,n", [("normal", 700), ("normal", 1500),
+                                    ("normal", 4), ("clustered", 20_000),
+                                    ("far", 1500)])
+def test_knn_kernel_matches_plain_and_brute_force(cuda, kind, n):
+    """knn3 in one launch, against the plain version (chunked cdist + topk
+    + the exact pass) at rtol 1e-6 and a float64 search over every pair at
+    rtol 1e-5; the same bits on a second call."""
+    pts = torch.as_tensor(_knn_cloud(kind, n, n), device=cuda)
+    before = KNN.KNN3.launches
+    got = KNN.mean_knn_dist2(pts)
+    assert KNN.KNN3.launches == before + 1
+    torch.testing.assert_close(got, KNN.mean_knn_dist2_plain(pts),
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(got.double(), _knn_brute_force(pts),
+                               rtol=1e-5, atol=0)
+    assert torch.equal(KNN.mean_knn_dist2(pts), got)
+
+
+def test_knn_on_pinned_host_memory_takes_the_plain_version(cuda):
+    pts = torch.as_tensor(_knn_cloud("normal", 700, 7)).pin_memory()
+    before = KNN.KNN3.launches
+    got = KNN.mean_knn_dist2(pts)
+    assert KNN.KNN3.launches == before and got.device.type == "cpu"
+    torch.testing.assert_close(got, KNN.mean_knn_dist2_plain(pts), rtol=0,
+                               atol=0)
 
 
 def _sized(kind, g, cam):
