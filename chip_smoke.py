@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sm_90a, one nvcc per source, started together: rasterize.cu (KR, the
    rectangle pass k1_rects; K1 dense forward; K2 dense backward) and
    rasterize_lists.cu (K3/K4 binned, K5/K6 tiled), which share
-   compositor.cuh, and knn.cu (knn3, the initial scales' KNN); print
-   ptxas's report.
+   compositor.cuh, knn.cu (knn3, the initial scales' KNN) and frontend.cu
+   (the front end's forward, backward and pose sum); print ptxas's
+   report.
 3. Kernel against plain version at the golden-case shape (64x48, 400
    splats) and a ragged mid size (250x187, 20k splats), for the dense
    kernels and for the binned and tiled ones at capacities sized for the
@@ -46,7 +47,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    K5 and K6, or K3 and K4, launch 200 times each, and so does KR, which
    runs in front of them too; a demotion by the overflow guard fails the
    run. Each run launches knn3 exactly once (create_from_pcd's initial
-   scales). A second dense run measures the
+   scales), and the front end's forward, backward and pose sum once an
+   iteration (the auto run's probe adds forwards of its sizing renders).
+   A second dense run measures the
    run-to-run spread. Every loss must fall and each curve must stay within
    LOSS_RTOL of the dense run's.
 5. At the training shape, with the trained scene: each kernel against the
@@ -72,7 +75,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    + the exact pass) at rtol 1e-6, its time by CUDA events beside the
    plain version's, the library's search alone (chunked torch.cdist +
    torch.topk, no exact pass) and the bound (N (N - 1) pairs x 8
-   operations over 67 TFLOP/s).
+   operations over 67 TFLOP/s). Then the front end's kernels
+   (csrc/frontend.cu) at the same two clouds, SH 0, 512x288: one launch
+   of each entry point a forward and backward, against compute_columns
+   and its autograd (radius and valid exactly), the same bits a second
+   call, their replayed times beside the plain version's, and the byte
+   bound.
 6. Stages 3 and 5 on the model of phase 4's first dense run, through
    instantsplat_tpu_torch.cli.render.main and cli.metrics.main: the train
    views; N_TEST_VIEWS test views, each refined from a start 2 degrees and
@@ -272,7 +280,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    checks each captured run's replays (all iterations but the first
    WARMUP of each graph).
 
-The last lines are one JSON object {"kernels": [...]} with nine entries,
+The last lines are one JSON object {"kernels": [...]} with thirteen entries,
 the nvidia-smi line, and {"ok": true, "device": {...}}. The seven
 compositor kernels' entries each hold `launches`, from its own path's
 run in phase 4, `launches_phase8`, from phase 8's in-process runs: its
@@ -282,7 +290,9 @@ phase 9's densification check, `launches_phase10`, 0 for every kernel, and
 `launches_phase12`, phase 12's, and `launches_phase13`, phase 13's. The
 two knn3 entries, one a cloud, hold the same keys, `launches` from phase
 4's dense run (one), and besides `launches_phase5`, phase 5's own calls
-at that cloud, counted from 0. A launch is one on
+at that cloud, counted from 0. The four FE entries (forward and backward
+at each cloud) hold `launches` from phase 4's dense run and None in the
+later phases' keys. A launch is one on
 the device: a kernel launched by a replay of a captured CUDA graph counts
 once per replay (rasterize_pallas.Kernel.replayed); its wrapper, called
 while the graph was captured, launched nothing then.
@@ -315,10 +325,24 @@ KR_OPS_PER_SPLAT = 35
 TRAIN_ITERS = 200
 N_POINTS = 100_000
 H, W = 384, 512
-SOURCES = ("rasterize.cu", "rasterize_lists.cu", "knn.cu")
+SOURCES = ("rasterize.cu", "rasterize_lists.cu", "knn.cu", "frontend.cu")
 # the benchmark's derived clouds (benchmark/traffic/train_{3,12}v.json at
 # 512x288): views, arc, the points stage 1 keeps
 KNN_CLOUDS = ((3, 0.15, 431_795), (12, 0.3, 1_429_807))
+BENCH_H, BENCH_W = 288, 512
+# the front end's launches ({"FE fwd", "FE bwd", "FE pose"}) in the last
+# run_cli call
+FRONTEND_LAUNCHES: dict = {}
+# bytes a Gaussian the front end's kernels move at SH 0 (csrc/frontend.cu):
+# the forward reads xyz, rotation, scaling, opacity and features_dc (56)
+# and writes a packed row, the key, the radius and the valid byte (49);
+# the backward reads the same 56 and a row of upstream gradients (40) and
+# writes 14 gradients (56) and the zero features_rest row at SH 3 (180)
+FRONTEND_FWD_BYTES = 56 + 49
+FRONTEND_BWD_BYTES = 56 + 40 + 56 + 180
+# the kernel's rows against compute_columns' on the card: both round each
+# operation alone in the same order, with the same expf/logf/rsqrtf
+FRONTEND_RTOL = 1e-6
 # float operations per point pair in knn3: 3 differences, 3 products and
 # 2 sums (the compare against the third best not counted)
 KNN_OPS_PER_PAIR = 8
@@ -1001,19 +1025,21 @@ def run_cli(main, argv):
     """Run a CLI main with the launch counts set to 0 just before and read
     just after, each run with no capacity signature checked or demoted.
     -> (what main returned, its stdout, seconds, launches {KR, K1..K6,
-    knn3}, the overflow guard's demotion warnings)."""
+    knn3}, the overflow guard's demotion warnings). The front end's
+    launches of the same run are left in FRONTEND_LAUNCHES."""
     import torch
 
     from instantsplat_tpu_torch.render import driver
 
     driver._guard = driver._OverflowGuard()
     kernels = kernel_table()
+    front = frontend_kernels()
     warns = _Warnings()
     guard_log = logging.getLogger("instantsplat_tpu_torch.render.driver")
     guard_log.addHandler(warns)
     tee = _Tee(sys.stdout)
     try:
-        for k in kernels.values():
+        for k in (*kernels.values(), *front.values()):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1022,6 +1048,8 @@ def run_cli(main, argv):
         torch.cuda.synchronize()
         seconds = time.time() - t0
         launches = {name: k.launches for name, k in kernels.items()}
+        FRONTEND_LAUNCHES.clear()
+        FRONTEND_LAUNCHES.update({n: k.launches for n, k in front.items()})
     finally:
         guard_log.removeHandler(warns)
     return result, "".join(tee.text), seconds, launches, warns.messages
@@ -1325,6 +1353,155 @@ def knn_shape(dev, path_launches: int) -> list:
         del pts, got, plain
         torch.cuda.empty_cache()
     return rows
+
+
+def frontend_kernels() -> dict:
+    """{name: Kernel} of the front end's three entry points
+    (csrc/frontend.cu)."""
+    from instantsplat_tpu_torch.ops import frontend as FE
+
+    return {"FE fwd": FE.FE_FORWARD, "FE bwd": FE.FE_BACKWARD,
+            "FE pose": FE.FE_POSE}
+
+
+def frontend_shape(dev, path_launches: dict) -> list:
+    """Phase 5's FE rows at the benchmark's two derived clouds (SH 0,
+    512x288, the first view): the forward and the backward against
+    compute_columns and its autograd (radius and valid exactly, the rows
+    within an ulp or two, every gradient within 1e-4 of its largest),
+    their device times (20 launches replayed from a CUDA graph; the pose
+    sum is timed with the backward), the plain version's forward and
+    forward + backward by CUDA events, and the byte bound
+    (FRONTEND_FWD_BYTES / FRONTEND_BWD_BYTES a Gaussian over 3.35 TB/s).
+    `path_launches`: the front end's launches in phase 4's dense run."""
+    import numpy as np
+    import torch
+
+    from benchmark.scenes import relief
+    from instantsplat_tpu_torch.models.camera import Camera
+    from instantsplat_tpu_torch.models.gaussians import GaussianModel
+    from instantsplat_tpu_torch.ops import frontend as FE
+
+    h, w = BENCH_H, BENCH_W
+    rows_out = []
+    for views, arc, n_want in KNN_CLOUDS:
+        geo = relief.geometry(views, h, w, arc, 0.01)
+        n = len(geo.xyz)
+        if n != n_want:
+            fail(f"FE: the {views}-view cloud has {n} points, expected "
+                 f"{n_want}")
+        g = GaussianModel.create_from_pcd(
+            geo.xyz, np.full((n, 3), 0.5, np.float32),
+            cam_poses=GaussianModel.init_cam_poses_from_w2c(geo.w2cs),
+            max_sh_degree=3, device=dev)
+        cam = Camera.create(geo.w2cs[0][:3, :3], geo.w2cs[0][:3, 3],
+                            fx=geo.fx, fy=geo.fx, height=h, width=w,
+                            device=dev)
+        view = (cam.fx, cam.fy, cam.cx, cam.cy)
+        pose = g.get_pose(0).clone()
+        leaves = [getattr(g, f) for f in FE.FIELDS] + [pose]
+        for x in leaves:
+            x.requires_grad_(True)
+        upstream = torch.randn((n, 10), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(views))
+
+        def plain():
+            c = FE.compute_columns(g, pose, *view, 1.0, 0, h, w)
+            key = torch.where(c.valid, c.depth, torch.full_like(c.depth, 1e30))
+            lo = torch.where(c.valid, c.log_op,
+                             torch.full_like(c.log_op, -torch.inf))
+            return torch.stack([c.mx, c.my, c.ca, c.cb, c.cc, lo, c.r, c.g,
+                                c.b, key], 1), c
+
+        for k in frontend_kernels().values():
+            k.launches = 0
+        rows, key, cols = FE.frontend_rows(g, pose, *view, 1.0, 0, h, w)
+        got = torch.autograd.grad(rows, leaves, upstream)
+        torch.cuda.synchronize()
+        if [k.launches for k in frontend_kernels().values()] != [1, 1, 1]:
+            fail(f"FE at {n} Gaussians: launches "
+                 f"{[k.launches for k in frontend_kernels().values()]} for "
+                 "one forward and backward, expected one each")
+        want, pc = plain()
+        ref = torch.autograd.grad(want, leaves, upstream, allow_unused=True)
+        if not (torch.equal(cols.valid, pc.valid)
+                and torch.equal(cols.radius, pc.radius)):
+            fail(f"FE at {n} Gaussians: radius or valid differs from "
+                 "compute_columns'")
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(rows)):
+            fail(f"FE at {n} Gaussians: the rows' sentinels differ")
+        d = (rows - want).detach().abs()[fin]
+        rel = float((d / want.detach().abs()[fin].clamp(min=1e-30)).max())
+        exact = float((d == 0).double().mean())
+        if rel > FRONTEND_RTOL:
+            fail(f"FE at {n} Gaussians: rows differ by {rel:.3e} relative "
+                 f"(limit {FRONTEND_RTOL:g})")
+        grad_err = {}
+        for name, a, b in zip([*FE.FIELDS, "pose"], got, ref):
+            b = torch.zeros_like(a) if b is None else b
+            scale = float(b.abs().max())
+            grad_err[name] = float((a - b).abs().max()) / (scale or 1.0)
+            if grad_err[name] > 1e-4:
+                fail(f"FE at {n} Gaussians: the gradient of {name} differs "
+                     f"by {grad_err[name]:.3e} of its largest")
+        again = FE.frontend_rows(g, pose, *view, 1.0, 0, h, w)[0]
+        if not (torch.equal(again, rows) and all(torch.equal(a, b) for a, b in
+                zip(torch.autograd.grad(again, leaves, upstream), got))):
+            fail(f"FE at {n} Gaussians: a second call differs")
+
+        # device time of each entry point alone, on fixed tensors
+        inputs = [getattr(g, f).detach() for f in FE.FIELDS] + [
+            t.contiguous() for t in (FE.T.quat_to_rotmat(pose[:4].detach()),
+                                     pose[4:7].detach())] + list(view)
+        args = FE._launch_inputs(inputs, (1.0, 0, n, h, w))
+        out = [torch.empty((n, 10), device=dev), torch.empty(n, device=dev),
+               torch.empty(n, device=dev),
+               torch.empty(n, dtype=torch.bool, device=dev)]
+        grads = [torch.empty_like(x) for x in inputs[:6]]
+        blocks = -(-n // FE.THREADS)
+        partials = torch.empty((blocks, FE.POSE), device=dev)
+        pose_out = torch.empty(FE.POSE, device=dev)
+        g_rows = upstream.contiguous()
+        f_ms = graph_ms(lambda: FE.FE_FORWARD(
+            *args, *(t.data_ptr() for t in out), FE._stream()), 20)
+        b_ms = graph_ms(lambda: (FE.FE_BACKWARD(
+            *args, g_rows.data_ptr(), *(t.data_ptr() for t in grads),
+            partials.data_ptr(), FE._stream()), FE.FE_POSE(
+                partials.data_ptr(), blocks, pose_out.data_ptr(),
+                FE._stream())), 20)
+        with torch.no_grad():
+            plain_f_ms = cuda_ms(plain, 3, 1)
+        plain_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+            plain()[0], leaves, upstream, allow_unused=True), 3, 1)
+        bound_f = n * FRONTEND_FWD_BYTES / PEAK_BYTES_S * 1e3
+        bound_b = n * FRONTEND_BWD_BYTES / PEAK_BYTES_S * 1e3
+        log(f"FE at {n} Gaussians ({views} views, SH 0, {w}x{h}; "
+            f"{int(cols.valid.sum())} valid): forward {f_ms:.4f} ms, backward "
+            f"+ pose sum {b_ms:.4f} ms in CUDA-graph replays; plain "
+            f"compute_columns forward {plain_f_ms:.3f} ms, forward + backward "
+            f"{plain_fb_ms:.3f} ms by CUDA events; bounds {bound_f:.4f} / "
+            f"{bound_b:.4f} ms ({FRONTEND_FWD_BYTES} / {FRONTEND_BWD_BYTES} "
+            f"B a Gaussian over 3.35 TB/s) = {bound_f / f_ms * 100:.1f}% / "
+            f"{bound_b / b_ms * 100:.1f}%; rows within {rel:.2e} relative "
+            f"({exact * 100:.2f}% of the finite entries bit-equal); "
+            "gradients within "
+            + ", ".join(f"{k} {v:.1e}" for k, v in grad_err.items()))
+        for what, ms, pms, bms, by in (
+                ("fwd", f_ms, plain_f_ms, bound_f, FRONTEND_FWD_BYTES),
+                ("bwd", b_ms, plain_fb_ms - plain_f_ms, bound_b,
+                 FRONTEND_BWD_BYTES)):
+            rows_out.append(dict(
+                name=f"FE {what} {views}v", route="cuda",
+                source="instantsplat_tpu_torch/csrc/frontend.cu",
+                replaces="none (instantsplat_tpu/ops/frontend.py: jnp "
+                         "compute_columns)",
+                launches=path_launches[f"FE {what}"], max_rel_err=rel,
+                ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=f"bytes ({by} B a Gaussian)", library_ms=None))
+        del g, leaves, rows, got, want, ref, out, grads, again
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def pose_error(w2c, gt_c2w) -> float:
@@ -4735,8 +4912,16 @@ def main():
                         "K6": 0, "knn3": 1}:
             fail(f"dense run: kernel launches {launches} != {TRAIN_ITERS} "
                  "each of KR, K1 and K2 and one of knn3")
+        # the front end: one forward, one backward and one pose sum an
+        # iteration (replays included), nothing else on the dense path
+        if FRONTEND_LAUNCHES != dict.fromkeys(frontend_kernels(),
+                                              TRAIN_ITERS):
+            fail(f"dense run: front-end launches {FRONTEND_LAUNCHES}, "
+                 f"expected {TRAIN_ITERS} each")
+        log(f"train dense: front-end launches {FRONTEND_LAUNCHES}")
         # launches of each kernel on its own path's run
         path_launches = {k: launches[k] for k in ("KR", "K1", "K2", "knn3")}
+        path_launches.update(FRONTEND_LAUNCHES)
         dense_losses = {it: m["loss"] for it, m in history}
 
         p0, cams = initial_params(scene, dev)
@@ -4770,6 +4955,13 @@ def main():
                 or launches["KR"] != TRAIN_ITERS):
             fail(f"auto run: forward launches {fwd}, backward {bwd}, KR "
                  f"{launches['KR']}, expected {TRAIN_ITERS} each ({launches})")
+        # the probe's sizing renders run the forward alone
+        if not (FRONTEND_LAUNCHES["FE bwd"] == FRONTEND_LAUNCHES["FE pose"]
+                == TRAIN_ITERS <= FRONTEND_LAUNCHES["FE fwd"]):
+            fail(f"auto run: front-end launches {FRONTEND_LAUNCHES}, "
+                 f"expected {TRAIN_ITERS} backward and pose sums and at "
+                 "least as many forwards")
+        log(f"train auto: front-end launches {FRONTEND_LAUNCHES}")
         won = ("dense" if launches["K1"] > TRAIN_ITERS // 2 else
                "tiled" if launches["K5"] > TRAIN_ITERS // 2 else "binned")
         log(f"train auto: backend that ran most iterations: {won}")
@@ -4793,6 +4985,10 @@ def main():
             if replays != TRAIN_ITERS - WARMUP:
                 fail(f"{kind} run: {replays} graph replays, expected "
                      f"{TRAIN_ITERS - WARMUP}")
+            if FRONTEND_LAUNCHES != dict.fromkeys(frontend_kernels(),
+                                                  TRAIN_ITERS):
+                fail(f"{kind} run: front-end launches {FRONTEND_LAUNCHES}, "
+                     f"expected {TRAIN_ITERS} each")
             if any(launches[k] != TRAIN_ITERS for k in ("KR", kf, kb)):
                 fail(f"{kind} run: KR/{kf}/{kb} launched {launches['KR']}/"
                      f"{launches[kf]}/{launches[kb]} times, expected "
@@ -4805,6 +5001,7 @@ def main():
         # ---- phase 5: the training shape, trained scene ------------------
         rows = training_shape(params, cam, dev, path_launches)
         rows += knn_shape(dev, path_launches["knn3"])
+        rows += frontend_shape(dev, path_launches)
 
         log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 6: stages 3 and 5 on the dense run's model ------------
@@ -4842,13 +5039,14 @@ def main():
             kind: backend for kind, (backend, _) in explicit.items()},
             host_model, dev, smi)
         del host_model
-        for row in rows:
-            row["launches_phase8"] = phase8[row["name"].split()[0]]
-            row["launches_phase9"] = phase9[row["name"].split()[0]]
-            row["launches_phase10"] = phase10[row["name"].split()[0]]
-            row["launches_phase11"] = phase11[row["name"].split()[0]]
-            row["launches_phase12"] = phase12[row["name"].split()[0]]
-            row["launches_phase13"] = phase13[row["name"].split()[0]]
+        for row in rows:  # the FE rows are counted in phases 4 and 5 only
+            key = row["name"].split()[0]
+            row["launches_phase8"] = phase8.get(key)
+            row["launches_phase9"] = phase9.get(key)
+            row["launches_phase10"] = phase10.get(key)
+            row["launches_phase11"] = phase11.get(key)
+            row["launches_phase12"] = phase12.get(key)
+            row["launches_phase13"] = phase13.get(key)
         log(f"{time.time() - t_start:.0f} s since the start")
 
     print(json.dumps({"kernels": rows}), flush=True)

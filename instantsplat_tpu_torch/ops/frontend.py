@@ -1,5 +1,5 @@
 """Geometry front-end: activations, covariance, SH shading and EWA
-projection as [N]-column arithmetic (port of instantsplat_tpu/ops/frontend.py).
+projection (port of instantsplat_tpu/ops/frontend.py).
 
 The pose stays in autograd, so camera-pose gradients flow through the view
 transform and the EWA Jacobian. Semantics kept from the reference:
@@ -7,21 +7,53 @@ covariance (R S)(R S)^T from normalized wxyz quaternions, camera-frame SH
 view directions with color = max(SH + 0.5, 0), the EWA Jacobian with the
 1.3*tan(fov/2) frustum clamp, the +0.3 px low-pass, the 3-sigma ceil
 radius, the z > 0.2 near cull, det > 0 and the screen-bounds test.
+
+Two routes. `compute_columns` is [N]-column arithmetic that autograd
+differentiates: the CPU route and the plain version the tests hold the
+kernels to. `frontend_rows` is the CUDA route (render/driver.py::
+prepare_packed_splats on CUDA tensors): one launch of frontend_forward
+(csrc/frontend.cu; its header note says what bounds it and how it
+rounds) writes the packed rows the depth sort gathers, and in the
+backward one launch of frontend_backward writes the Gaussians' gradients
+and one of frontend_pose_reduce sums the pose's, the gradients autograd
+asks for only. SH degrees 0-3.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from instantsplat_tpu_torch.ops.projection import LOW_PASS, NEAR_CULL_Z
+from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
 from instantsplat_tpu_torch.utils import transforms as T
 from instantsplat_tpu_torch.utils.sh import C0, C1, C2, C3, C4
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the inputs both directions read: six Gaussian fields, the SH row length,
+# R, t, fx, fy, cx, cy, the scale modifier, degree, N, H, W
+_INPUTS = [_P] * 6 + [_I] + [_P] * 6 + [_F, _I, _I, _I, _I]
+FE_FORWARD = Kernel("frontend_forward", _INPUTS + [_P] * 5,
+                    source="frontend.cu")
+FE_BACKWARD = Kernel("frontend_backward", _INPUTS + [_P] * 9,
+                     source="frontend.cu")
+FE_POSE = Kernel("frontend_pose_reduce", [_P, _I, _P, _P],
+                 source="frontend.cu")
+KERNEL_DEGREES = (0, 1, 2, 3)  # the SH degrees the kernels are built for
+THREADS = 256  # Gaussians a block (csrc/frontend.cu THREADS)
+POSE = 12  # a block's pose partials: dL/dR row-major, then dL/dt
+# the Gaussian fields the kernels read, and each one's shape after N
+FIELDS = {"xyz": (3,), "rotation": (4,), "scaling": (3,), "opacity": (1,),
+          "features_dc": (1, 3), "features_rest": (None, 3)}
+
 
 class FrontendCols(NamedTuple):
-    """Per-Gaussian screen-space columns, each [N]."""
+    """Per-Gaussian screen-space columns, each [N]. From the kernels'
+    route (frontend_rows) log_op and depth hold -inf and 1e30 on culled
+    rows."""
 
     mx: torch.Tensor  # pixel x of the 2D mean
     my: torch.Tensor  # pixel y
@@ -202,3 +234,145 @@ def compute_columns(gaussians, pose: torch.Tensor, fx, fy, cx, cy,
     radius = torch.where(valid, radius, torch.zeros_like(radius))
     return FrontendCols(mx, my, ca, cb, cc, log_op, r, g, b, vz, radius,
                         valid)
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+class _FrontendCuda(torch.autograd.Function):
+    """The six Gaussian fields, R [3,3], t [3], fx, fy, cx, cy (0-dim, on
+    the device) -> (rows [N,10], key [N], radius [N], valid [N]): one
+    frontend_forward launch; the backward launches frontend_backward and,
+    when the pose needs it, frontend_pose_reduce."""
+
+    @staticmethod
+    def forward(ctx, xyz, rotation, scaling, opacity, features_dc,
+                features_rest, R, t, fx, fy, cx, cy, scale_modifier, degree,
+                height, width):
+        n, dev = xyz.shape[0], xyz.device
+        rows = torch.empty((n, 10), device=dev)
+        key = torch.empty(n, device=dev)
+        radius = torch.empty(n, device=dev)
+        valid = torch.empty(n, dtype=torch.bool, device=dev)
+        inputs = (xyz, rotation, scaling, opacity, features_dc,
+                  features_rest, R, t, fx, fy, cx, cy)
+        ctx.save_for_backward(*inputs)
+        ctx.args = (scale_modifier, degree, n, height, width)
+        ctx.mark_non_differentiable(key, radius, valid)
+        if n:
+            with torch.cuda.device(dev):
+                FE_FORWARD(*_launch_inputs(inputs, ctx.args), rows.data_ptr(),
+                           key.data_ptr(), radius.data_ptr(),
+                           valid.data_ptr(), _stream())
+        return rows, key, radius, valid
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_rows, g_key, g_radius, g_valid):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grads = [torch.empty_like(x) if need[k] else None
+                 for k, x in enumerate(inputs[:6])]
+        n, dev = inputs[0].shape[0], inputs[0].device
+        pose = need[6] or need[7]
+        blocks = -(-n // THREADS)
+        out = (torch.empty if n else torch.zeros)(POSE, device=dev)
+        if n:
+            partials = (torch.empty((blocks, POSE), device=dev) if pose
+                        else None)
+            with torch.cuda.device(dev):
+                FE_BACKWARD(*_launch_inputs(inputs, ctx.args),
+                            g_rows.contiguous().data_ptr(),
+                            *map(_ptr, grads), _ptr(partials), _stream())
+                if pose:
+                    FE_POSE(partials.data_ptr(), blocks, out.data_ptr(),
+                            _stream())
+        d_R = out[:9].view(3, 3) if need[6] else None
+        d_t = out[9:] if need[7] else None
+        return (*grads, d_R, d_t) + (None,) * 8
+
+
+def _launch_inputs(inputs, args):
+    scale_modifier, degree, n, height, width = args
+    return (*(x.data_ptr() for x in inputs[:6]), inputs[5].shape[1],
+            *(x.data_ptr() for x in inputs[6:]), scale_modifier, degree, n,
+            height, width)
+
+
+def _view_scalar(v, name: str, device) -> torch.Tensor:
+    """fx, fy, cx or cy, which the kernels read through its pointer (a
+    captured step gathers its view on the device): a float32 scalar tensor
+    on the Gaussians' device, outside autograd."""
+    if not (torch.is_tensor(v) and v.device == device
+            and v.dtype == torch.float32 and v.numel() == 1):
+        raise ValueError(f"frontend_rows: {name} must be a float32 scalar "
+                         f"tensor on {device}, not {v!r}")
+    if v.requires_grad:
+        raise ValueError(f"frontend_rows: {name} requires grad; the kernels "
+                         "read the intrinsics and do not differentiate them")
+    return v.reshape(())
+
+
+def _checked_fields(gaussians, degree: int, device) -> list:
+    if degree not in KERNEL_DEGREES:
+        raise ValueError(f"frontend_rows: SH degree {degree} is outside "
+                         f"{KERNEL_DEGREES[0]}-{KERNEL_DEGREES[-1]}, the "
+                         "degrees the kernels are built for")
+    n = gaussians.xyz.shape[0]
+    out = []
+    for name, shape in FIELDS.items():
+        x = getattr(gaussians, name)
+        if x.dtype != torch.float32:
+            raise ValueError(f"frontend_rows: {name} is {x.dtype}, not "
+                             "torch.float32")
+        if x.device != device:
+            raise ValueError(f"frontend_rows: {name} is on {x.device}, xyz "
+                             f"on {device}")
+        if (x.dim() != 1 + len(shape) or x.shape[0] != n or any(
+                want is not None and got != want
+                for got, want in zip(x.shape[1:], shape))):
+            want = ", ".join("K" if d is None else str(d) for d in shape)
+            raise ValueError(f"frontend_rows: {name} is {tuple(x.shape)}, "
+                             f"not [{n}, {want}]")
+        if not x.is_contiguous():
+            raise ValueError(f"frontend_rows: {name} is not contiguous")
+        out.append(x)
+    if out[-1].shape[1] < (degree + 1) ** 2 - 1:
+        raise ValueError(f"frontend_rows: features_rest holds "
+                         f"{out[-1].shape[1]} coefficients a Gaussian, SH "
+                         f"degree {degree} reads {(degree + 1) ** 2 - 1}")
+    return out
+
+
+def frontend_rows(gaussians, pose: torch.Tensor, fx, fy, cx, cy,
+                  scale_modifier, active_sh_degree: int, height: int,
+                  width: int):
+    """The CUDA route of the front end: -> (rows [N, 10], key [N],
+    FrontendCols). rows are the packed splat rows in Gaussian order (mx,
+    my, conic a b c, log-opacity with -inf on culled rows, r, g, b, the
+    depth key with the finite 1e30 sentinel on culled rows), what
+    compute_columns' columns give when stacked so; key is column 9 again,
+    contiguous and outside autograd, for the depth sort. The FrontendCols
+    are views of rows (their log_op and depth carry the culled rows'
+    -inf and 1e30) and the kernel's radius and valid. Differentiable with
+    respect to the six Gaussian fields and `pose`; the intrinsics are
+    read through device pointers and not differentiated."""
+    dev = gaussians.xyz.device
+    fields = _checked_fields(gaussians, active_sh_degree, dev)
+    if pose.dtype != torch.float32 or pose.device != dev:
+        raise ValueError(f"frontend_rows: the pose is {pose.dtype} on "
+                         f"{pose.device}, not torch.float32 on {dev}")
+    R = T.quat_to_rotmat(pose[:4]).contiguous()
+    t = pose[4:7].contiguous()
+    view = [_view_scalar(v, name, dev)
+            for v, name in zip((fx, fy, cx, cy), ("fx", "fy", "cx", "cy"))]
+    rows, key, radius, valid = _FrontendCuda.apply(
+        *fields, R, t, *view, float(scale_modifier), active_sh_degree,
+        height, width)
+    cols = FrontendCols(*rows.unbind(1), radius, valid)
+    return rows, key, cols

@@ -42,7 +42,7 @@ from instantsplat_tpu_torch.ops import (
     rasterize_pallas_binned,
     rasterize_pallas_tiled,
 )
-from instantsplat_tpu_torch.ops.frontend import compute_columns
+from instantsplat_tpu_torch.ops.frontend import compute_columns, frontend_rows
 from instantsplat_tpu_torch.ops.rasterize import composite_out
 from instantsplat_tpu_torch.ops.rasterize_lists import (composite_lists,
                                                         splat_valid)
@@ -67,7 +67,18 @@ def prepare_packed_splats(gaussians, pose, fx, fy, cx, cy, scale_modifier,
     unsorted FrontendCols). Columns: mx, my, conic a b c, log-opacity (-inf
     for invalid rows), r, g, b, depth; column 9 is the sorted key itself,
     so invalid rows carry the finite sentinel. The sort is stable, so the
-    order is deterministic; tied invalid rows contribute nothing."""
+    order is deterministic; tied invalid rows contribute nothing.
+    On CUDA tensors the front end is the kernels' (ops/frontend.py::
+    frontend_rows: the rows come out packed, with the sentinels; the
+    FrontendCols' log_op and depth carry them too); on CPU tensors it is
+    compute_columns'."""
+    if gaussians.xyz.is_cuda:
+        rows, key, cols = frontend_rows(gaussians, pose, fx, fy, cx, cy,
+                                        scale_modifier, active_sh_degree,
+                                        height, width)
+        profiling.mark("frontend")
+        _, perm = torch.sort(key, stable=True)
+        return rows[perm], cols
     cols = compute_columns(gaussians, pose, fx, fy, cx, cy, scale_modifier,
                            active_sh_degree, height, width)
     profiling.mark("frontend")

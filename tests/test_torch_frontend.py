@@ -1,6 +1,11 @@
 """The port's geometry front-end against instantsplat_tpu.ops.frontend:
 all 12 FrontendCols and the VJP with respect to the pose and every
-Gaussian parameter, on the same seeded numpy inputs (rtol 1e-5)."""
+Gaussian parameter, on the same seeded numpy inputs (rtol 1e-5). Then the
+two routes of the port's own front end: on CPU tensors
+prepare_packed_splats is compute_columns, the CUDA route's wrapper
+(frontend_rows) refuses what its kernels cannot read and names the fault,
+and the kernels' source, built for the host (tests/torch_frontend_host.py),
+gives compute_columns' columns and autograd's gradients."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +17,9 @@ from instantsplat_tpu.models.gaussians import GaussianModel as JGaussians
 from instantsplat_tpu.ops import frontend as jfront
 from instantsplat_tpu_torch.models.gaussians import GaussianModel
 from instantsplat_tpu_torch.ops import frontend
+from instantsplat_tpu_torch.render.driver import prepare_packed_splats
+from torch_frontend_cases import frontend_scene, packed_plain
+from torch_frontend_host import host_library, on_host
 
 # the test workers share the machine's cores: two intra-op threads each
 torch.set_num_threads(2)
@@ -106,3 +114,114 @@ def test_vjp_matches_jax(active):
         np.testing.assert_allclose(g.numpy(), ref, rtol=1e-5,
                                    atol=1e-5 * max(np.abs(ref).max(), 1e-30),
                                    err_msg=k)
+
+
+def _equal(a, b):
+    return torch.equal(torch.nan_to_num(a, 0.0, 1e38, -1e38),
+                       torch.nan_to_num(b, 0.0, 1e38, -1e38)) and torch.equal(
+                           a.isnan(), b.isnan())
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_cpu_route_is_compute_columns(degree):
+    """On CPU tensors prepare_packed_splats returns compute_columns' own
+    FrontendCols and its columns packed and sorted by the depth key."""
+    g, pose, fx, fy, cx, cy = frontend_scene(400, H, W, degree, "cpu")
+    packed, cols = prepare_packed_splats(g, pose, fx, fy, cx, cy, 1.0, degree,
+                                         H, W)
+    want, plain = packed_plain(g, pose, fx, fy, cx, cy, degree, H, W)
+    for name, a, b in zip(frontend.FrontendCols._fields, cols, plain):
+        assert _equal(a, b), name
+    perm = torch.sort(want[:, 9], stable=True).indices
+    assert _equal(packed, want[perm])
+
+
+def _refusal_cases():
+    def field(name, fn):
+        def make(g, pose, view):
+            setattr(g, name, fn(getattr(g, name)))
+            return g, pose, view, 1
+        return make
+
+    def view(k, fn):
+        def make(g, pose, view):
+            view = list(view)
+            view[k] = fn(view[k])
+            return g, pose, view, 1
+        return make
+
+    return {
+        "float64 xyz": (field("xyz", lambda x: x.double()),
+                        "xyz is torch.float64, not torch.float32"),
+        "strided rotation": (field("rotation", lambda x: x.T.contiguous().T),
+                             "rotation is not contiguous"),
+        "flat opacity": (field("opacity", lambda x: x[:, 0]),
+                         r"opacity is \(400,\), not \[400, 1\]"),
+        "short features_rest": (field("features_rest",
+                                      lambda x: x[:, :2].contiguous()),
+                                "features_rest holds 2 coefficients"),
+        "degree 4": (lambda g, p, v: (g, p, v, 4), "SH degree 4 is outside 0-3"),
+        "degree -1": (lambda g, p, v: (g, p, v, -1),
+                      "SH degree -1 is outside 0-3"),
+        "float64 pose": (lambda g, p, v: (g, p.double(), v, 1),
+                         "the pose is torch.float64"),
+        "fx with a gradient": (view(0, lambda x: x.requires_grad_(True)),
+                               "fx requires grad"),
+        "cy a Python float": (view(3, float),
+                              "cy must be a float32 scalar tensor on cpu"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_refusal_cases()))
+def test_frontend_rows_refuses_and_names_the_fault(case):
+    """frontend_rows checks its inputs before any launch: each refusal is a
+    ValueError that names the field and the fault."""
+    make, message = _refusal_cases()[case]
+    g, pose, *view = frontend_scene(400, H, W, 0, "cpu")
+    g, pose, view, degree = make(g, pose, view)
+    with pytest.raises(ValueError, match=message):
+        frontend.frontend_rows(g, pose, *view, 1.0, degree, H, W)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return host_library(tmp_path_factory.mktemp("frontend_host"))
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+def test_kernel_source_on_the_host_matches_compute_columns(
+        degree, host_lib, monkeypatch):
+    """csrc/frontend.cu built for the host: its rows against compute_columns'
+    (radius and valid exactly, the floats to the host's expf/logf), its
+    gradients of every field and of the pose (pose-only too) against
+    autograd's; two blocks and a ragged one, so the pose sums cross
+    blocks."""
+    on_host(monkeypatch, host_lib)
+    g, pose, fx, fy, cx, cy = frontend_scene(700, H, W, 20 + degree, "cpu",
+                                             degenerate=False,
+                                             identity=degree % 2 == 1)
+    leaves = [getattr(g, f) for f in frontend.FIELDS] + [pose]
+    for x in leaves:
+        x.requires_grad_(True)
+    want, plain = packed_plain(g, pose, fx, fy, cx, cy, degree, H, W)
+    rows, key, cols = frontend.frontend_rows(g, pose, fx, fy, cx, cy, 1.0,
+                                             degree, H, W)
+    assert torch.equal(cols.valid, plain.valid)
+    assert torch.equal(cols.radius, plain.radius)
+    assert torch.equal(key, rows[:, 9].detach())
+    torch.testing.assert_close(rows, want, rtol=1e-5, atol=1e-6)
+    upstream = torch.randn((700, 10), generator=torch.Generator().manual_seed(
+        degree))
+    ref = torch.autograd.grad(want, leaves, upstream, allow_unused=True)
+    got = torch.autograd.grad(rows, leaves, upstream)
+    for name, a, b in zip([*frontend.FIELDS, "pose"], got, ref):
+        b = torch.zeros_like(a) if b is None else b
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-30,
+                                   msg=name)
+    for x in leaves[:-1]:
+        x.requires_grad_(False)
+    rows, _, _ = frontend.frontend_rows(g, pose, fx, fy, cx, cy, 1.0, degree,
+                                        H, W)
+    (alone,) = torch.autograd.grad(rows, [pose], upstream)
+    assert torch.equal(alone, got[-1])

@@ -1,6 +1,7 @@
 """Tests that need the CUDA card: the kernels KR/K1/K2 (dense), K3/K4
 (binned) and K5/K6 (tiled) against their plain versions, the KNN kernel
-knn3 against its plain version and a float64 brute force, the render
+knn3 against its plain version and a float64 brute force, the front
+end's kernels against compute_columns and autograd, the render
 paths on the card, stage 1's TINY MASt3R and golden aligner case on the
 card against the CPU, init_test_pose on the card against the CPU, a
 live viewer render on the card, and the sparse-alignment family:
@@ -25,6 +26,7 @@ import torch
 
 from instantsplat_tpu_torch.models.camera import Camera
 from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
+from instantsplat_tpu_torch.ops import frontend as FE
 from instantsplat_tpu_torch.ops import knn as KNN
 from instantsplat_tpu_torch.ops import rasterize_lists as RL
 from instantsplat_tpu_torch.ops import rasterize_pallas as RP
@@ -33,6 +35,7 @@ from instantsplat_tpu_torch.ops import rasterize_pallas_tiled as RT
 from instantsplat_tpu_torch.ops.rasterize import composite_plain
 from instantsplat_tpu_torch.render import driver
 from instantsplat_tpu_torch.render.driver import prepare_packed_splats, render
+from torch_frontend_cases import frontend_scene, packed_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -1048,3 +1051,198 @@ def test_trace_marks_are_the_only_difference(cuda, tmp_path, monkeypatch):
     finally:
         profiling.enable(False)
         profiling.reset()
+
+
+# ---- the front end: csrc/frontend.cu against compute_columns -------------
+
+
+def _fe_leaves(g, pose):
+    return [getattr(g, f) for f in FE.FIELDS] + [pose]
+
+
+def _fe_close(got, want, what):
+    """Within 1e-4 of the field's largest plain magnitude, elementwise."""
+    ok = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), ok), what
+    scale = float(want[ok].abs().max()) if ok.any() else 0.0
+    torch.testing.assert_close(got[ok], want[ok], rtol=1e-4,
+                               atol=1e-4 * scale + 1e-30, msg=what)
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("identity", [False, True])
+def test_frontend_kernel_matches_compute_columns(cuda, degree, identity):
+    """One frontend_forward launch against compute_columns on the card at
+    SH 0-3, on rows at the near plane, off screen, with a NaN det, an
+    underflowing covariance, a zero quaternion and on the colour and
+    frustum clamps' ties: radius and valid exactly, the packed rows (the
+    sentinels included) within an ulp or two."""
+    h, w = 96, 128
+    g, pose, fx, fy, cx, cy = frontend_scene(3000, h, w, degree, cuda,
+                                             identity=identity)
+    want, plain = packed_plain(g, pose, fx, fy, cx, cy, degree, h, w)
+    before = FE.FE_FORWARD.launches
+    rows, key, cols = FE.frontend_rows(g, pose, fx, fy, cx, cy, 1.0, degree,
+                                       h, w)
+    torch.cuda.synchronize()
+    assert FE.FE_FORWARD.launches == before + 1
+    assert torch.equal(cols.valid, plain.valid)
+    assert torch.equal(cols.radius, plain.radius)
+    assert 0 < int(cols.valid.sum()) < 3000
+    torch.testing.assert_close(rows, want, rtol=1e-6, atol=0,
+                               equal_nan=True)
+    assert torch.equal(key, rows[:, 9])
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("identity", [False, True])
+def test_frontend_backward_matches_autograd(cuda, degree, identity):
+    """The gradients of every Gaussian field and of the pose (through
+    quat_to_rotmat) from one frontend_backward and one
+    frontend_pose_reduce launch, against autograd through compute_columns
+    on the card, for random upstream gradients of the rows: features_rest
+    zero past the degree, the ties' half gradients."""
+    h, w = 96, 128
+    g, pose, fx, fy, cx, cy = frontend_scene(
+        3000, h, w, 10 + degree, cuda, degenerate=False, identity=identity)
+    leaves = _fe_leaves(g, pose)
+    for x in leaves:
+        x.requires_grad_(True)
+    upstream = torch.randn((3000, 10), generator=torch.Generator(
+        device=cuda).manual_seed(degree), device=cuda)
+    want = torch.autograd.grad(
+        packed_plain(g, pose, fx, fy, cx, cy, degree, h, w)[0], leaves,
+        upstream, allow_unused=True)
+    before = (FE.FE_BACKWARD.launches, FE.FE_POSE.launches)
+    rows, _, _ = FE.frontend_rows(g, pose, fx, fy, cx, cy, 1.0, degree, h, w)
+    got = torch.autograd.grad(rows, leaves, upstream)
+    torch.cuda.synchronize()
+    assert (FE.FE_BACKWARD.launches, FE.FE_POSE.launches) == tuple(
+        b + 1 for b in before)
+    for name, a, b in zip([*FE.FIELDS, "pose"], got, want):
+        _fe_close(a, torch.zeros_like(a) if b is None else b, name)
+    k = (degree + 1) ** 2 - 1
+    assert not got[5][:, k:].any()
+
+
+def test_frontend_pose_only_backward(cuda):
+    """With the Gaussians frozen (the pose refiner) the backward writes no
+    Gaussian gradient and gives the pose the full backward's bits."""
+    h, w = 96, 128
+    g, pose, fx, fy, cx, cy = frontend_scene(5000, h, w, 3, cuda,
+                                             degenerate=False)
+    upstream = torch.randn((5000, 10), device=cuda)
+    pose.requires_grad_(True)
+    rows, _, _ = FE.frontend_rows(g, pose, fx, fy, cx, cy, 1.0, 1, h, w)
+    (alone,) = torch.autograd.grad(rows, [pose], upstream)
+    leaves = _fe_leaves(g, pose)
+    for x in leaves:
+        x.requires_grad_(True)
+    rows, _, _ = FE.frontend_rows(g, pose, fx, fy, cx, cy, 1.0, 1, h, w)
+    full = torch.autograd.grad(rows, leaves, upstream)
+    assert torch.equal(alone, full[-1])
+    want = torch.autograd.grad(packed_plain(g, pose, fx, fy, cx, cy, 1, h,
+                                            w)[0], [pose], upstream)[0]
+    _fe_close(alone, want, "pose")
+
+
+def test_frontend_is_the_same_every_call(cuda):
+    """Two forward and backward calls give the same bits (the pose sums
+    use no float atomics)."""
+    h, w = 96, 128
+    g, pose, fx, fy, cx, cy = frontend_scene(20_000, h, w, 4, cuda,
+                                             degenerate=False)
+    leaves = _fe_leaves(g, pose)
+    for x in leaves:
+        x.requires_grad_(True)
+    upstream = torch.randn((20_000, 10), device=cuda)
+    outs = []
+    for _ in range(2):
+        rows, key, cols = FE.frontend_rows(g, pose, fx, fy, cx, cy, 1.0, 0,
+                                           h, w)
+        outs.append([rows, key, cols.radius, cols.valid,
+                     *torch.autograd.grad(rows, leaves, upstream)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_frontend_captured_graph_serves_two_views(cuda):
+    """One CUDA graph of the front end's forward and backward, replayed for
+    two views whose pose and intrinsics are copied into its inputs between
+    replays: each replay gives that view's eager rows and gradients."""
+    h, w = 96, 128
+    g, pose0, fx0, fy0, cx0, cy0 = frontend_scene(4000, h, w, 5, cuda,
+                                                  degenerate=False)
+    _, pose1, *_ = frontend_scene(4000, h, w, 6, cuda, degenerate=False)
+    views = [(pose0, torch.stack([fx0, fy0, cx0, cy0])),
+             (pose1, torch.stack([fx0 * 1.1, fy0 * 0.9, cx0 - 3, cy0 + 2]))]
+    leaves = _fe_leaves(g, pose0)[:-1]
+    for x in leaves:
+        x.requires_grad_(True)
+    upstream = torch.randn((4000, 10), device=cuda)
+    pose_s = pose0.clone().requires_grad_(True)
+    intr_s = views[0][1].clone()
+
+    def step():
+        rows, _, cols = FE.frontend_rows(g, pose_s, *intr_s.unbind(), 1.0, 1,
+                                         h, w)
+        return [rows, cols.radius,
+                *torch.autograd.grad(rows, leaves + [pose_s], upstream)]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = FE.FE_FORWARD.captured
+    with torch.cuda.graph(graph):
+        outs = step()
+    assert FE.FE_FORWARD.captured == captured + 1
+    for pose, intr in views:
+        with torch.no_grad():
+            pose_s.copy_(pose)
+            intr_s.copy_(intr)
+        graph.replay()
+        torch.cuda.synchronize()
+        p = pose.clone().requires_grad_(True)
+        rows, _, cols = FE.frontend_rows(g, p, *intr.unbind(), 1.0, 1, h, w)
+        eager = [rows, cols.radius,
+                 *torch.autograd.grad(rows, leaves + [p], upstream)]
+        for a, b in zip(outs, eager):
+            assert torch.equal(a, b)
+
+
+def test_frontend_step_launches(cuda):
+    """prepare_packed_splats and its backward on a CUDA tensor: one forward
+    launch, one backward and one pose sum, and under 250 device kernels in
+    all (torch.profiler: quat_to_rotmat and its autograd, the sort, the
+    gather and its backward; 177 on an H100), where compute_columns and
+    its autograd took over a thousand."""
+    from torch.profiler import ProfilerActivity, profile
+
+    h, w = 96, 128
+    g, pose, fx, fy, cx, cy = frontend_scene(3000, h, w, 7, cuda,
+                                             degenerate=False)
+    leaves = _fe_leaves(g, pose)
+    for x in leaves:
+        x.requires_grad_(True)
+
+    def run():
+        packed, _ = prepare_packed_splats(g, pose, fx, fy, cx, cy, 1.0, 0,
+                                          h, w)
+        return torch.autograd.grad(packed, leaves, torch.ones_like(packed))
+
+    run()
+    torch.cuda.synchronize()
+    counts = [k.launches for k in (FE.FE_FORWARD, FE.FE_BACKWARD, FE.FE_POSE)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    assert [k.launches for k in (FE.FE_FORWARD, FE.FE_BACKWARD,
+                                 FE.FE_POSE)] == [c + 1 for c in counts]
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    names = {e.name for e in kernels}
+    assert any("frontend_forward_kernel" in n for n in names)
+    assert any("frontend_backward_kernel" in n for n in names)
+    assert 0 < len(kernels) < 250, len(kernels)
