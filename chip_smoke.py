@@ -672,14 +672,9 @@ def backend_paths(backend: str, packed, height, width):
                 lambda ga, gtu, tf, lc: RP.k2_backward(packed, scan, ga, gtu,
                                                        tf, lc),
                 None)
-    if backend.startswith("pallas-binned"):
-        lists, geom = RB.bin_lists(packed, height, width,
-                                   *driver._parse_binned_caps(backend))
-        names, fwd, bwd, cta_cols = ("K3", "K4"), RB.K3, RB.K4, RB.CTA_COLS
-    else:
-        lists, geom = RT.tile_lists(packed, height, width,
-                                    *driver._parse_tiled_caps(backend))
-        names, fwd, bwd, cta_cols = ("K5", "K6"), RT.K5, RT.K6, RT.CTA_COLS
+    lists, geom, fwd, bwd = driver.build_lists(packed, height, width, backend)
+    names, cta_cols = ((("K3", "K4"), RB.CTA_COLS) if fwd is RB.K3
+                       else (("K5", "K6"), RT.CTA_COLS))
     return (names,
             lambda p: RL.composite_lists_plain(p, lists, geom, height, width),
             lambda: RL.lists_forward(fwd, packed, scan.rect, lists, geom,
@@ -968,7 +963,7 @@ def profile_iterations(tag, params, cam, dev, backend="auto", top=12,
     from instantsplat_tpu_torch.pipelines.trainer import train_step
     from instantsplat_tpu_torch.render import driver
 
-    driver._guard = driver._OverflowGuard()  # nothing checked or demoted
+    driver.reset_overflow_guard()  # nothing checked or demoted
     opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=True,
                                                optim_pose=True),
                             total_iterations=TRAIN_ITERS)
@@ -1031,7 +1026,7 @@ def run_cli(main, argv):
 
     from instantsplat_tpu_torch.render import driver
 
-    driver._guard = driver._OverflowGuard()
+    driver.reset_overflow_guard()
     kernels = kernel_table()
     front = frontend_kernels()
     warns = _Warnings()
@@ -3683,7 +3678,7 @@ def stage_parallel(scene: Path, tmp: Path, dev, smi: str):
     from instantsplat_tpu_torch.render import driver
 
     t_phase = time.time()
-    driver._guard = driver._OverflowGuard()
+    driver.reset_overflow_guard()
     kernels = kernel_table()
     for k in kernels.values():
         k.launches = 0
@@ -3742,7 +3737,7 @@ def stage_structured(scene: Path, tmp: Path, dev, smi: str):
     from instantsplat_tpu_torch.utils import transforms as T
 
     t_phase = time.time()
-    driver._guard = driver._OverflowGuard()
+    driver.reset_overflow_guard()
     kernels = kernel_table()
     for k in kernels.values():
         k.launches = 0
@@ -4085,7 +4080,7 @@ def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict,
     n_prof, n_time = 10, 30  # cut from 20, 50 for the time limit
     for kind, backend in (("dense", "pallas"), ("tiled", explicit["tiled"]),
                           ("binned", explicit["binned"])):
-        driver._guard = driver._OverflowGuard()
+        driver.reset_overflow_guard()
         restore(s0)
         for k in kernels.values():
             k.launches = 0
@@ -4182,7 +4177,7 @@ def stage_graphs(scene: Path, tmp: Path, captured: dict, explicit: dict,
     del state
 
     # ---- (e) the pose refiner on phase 6's test views ----------------------
-    driver._guard = driver._OverflowGuard()
+    driver.reset_overflow_guard()
     for k in kernels.values():
         k.launches = 0
     test = read_scene(scene, 3, split="test", device=dev)

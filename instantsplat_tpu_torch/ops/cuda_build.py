@@ -9,6 +9,8 @@ compiler's `-Xptxas -v` report (registers, shared memory, spills) is kept
 beside the library. A missing nvcc or a failed build raises; nothing falls
 back to another implementation. Each compile (not a cached library)
 counts in the counter `cuda_build.builds` (utils/profiling.py).
+`Kernel` is one entry point of such a library, called through ctypes and
+counted.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from instantsplat_tpu_torch.utils import profiling
 
@@ -90,3 +94,40 @@ def load_library(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(source)))
         _loaded[source] = lib
     return lib
+
+
+class Kernel:
+    """One CUDA entry point of csrc/<source>: its ctypes signature and a
+    launch count.
+
+    A call made while the current stream is being captured into a CUDA
+    graph (utils/cuda_graphs.py) launches nothing: it is counted in
+    `captured`, and every replay of that graph adds its launches to
+    `launches` (`replayed`), so `launches` counts what ran on the device."""
+
+    registry: list = []  # every Kernel, in the order defined
+
+    def __init__(self, name: str, argtypes, source: str = "rasterize.cu"):
+        self.name = name
+        self.argtypes = argtypes
+        self.source = source
+        self.launches = 0  # incremented once per kernel launch
+        self.captured = 0  # calls recorded into the graph being captured
+        Kernel.registry.append(self)
+
+    def __call__(self, *args):
+        fn = getattr(load_library(self.source), self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = fn(*args)
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed "
+                               f"(cudaError {err})")
+
+    def replayed(self, n: int):
+        """`n` launches of this kernel by replays of a captured graph."""
+        self.launches += n

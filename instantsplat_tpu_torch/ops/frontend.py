@@ -28,7 +28,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from instantsplat_tpu_torch.ops.projection import LOW_PASS, NEAR_CULL_Z
-from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
+from instantsplat_tpu_torch.ops.cuda_build import Kernel
 from instantsplat_tpu_torch.utils import transforms as T
 from instantsplat_tpu_torch.utils.sh import C0, C1, C2, C3, C4
 

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
+from instantsplat_tpu_torch.ops.cuda_build import Kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KNN3 = Kernel("knn3", [_P, _P, _I, _P], source="knn.cu")

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from instantsplat_tpu_torch.ops.cuda_build import Kernel
 from instantsplat_tpu_torch.ops.rasterize import (
     LOG_TERM,
     _scan_chunks,
@@ -55,7 +56,6 @@ from instantsplat_tpu_torch.ops.rasterize_pallas import (
     NCOL,
     TILE,
     WORD_SPLATS,
-    Kernel,
     _check,
     _check_packed,
     _stream,

@@ -39,7 +39,8 @@ from instantsplat_tpu_torch.ops.rasterize_lists import (
     round_up,
     splat_valid,
 )
-from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel, pack_splats
+from instantsplat_tpu_torch.ops.cuda_build import Kernel
+from instantsplat_tpu_torch.ops.rasterize_pallas import pack_splats
 
 BLOCK_ROWS = 4
 STRIP_ROWS = 512  # the TPU strip height; bounds the sizing's per-strip max

@@ -38,7 +38,8 @@ from instantsplat_tpu_torch.ops.rasterize_lists import (
     round_up,
     splat_valid,
 )
-from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel, pack_splats
+from instantsplat_tpu_torch.ops.cuda_build import Kernel
+from instantsplat_tpu_torch.ops.rasterize_pallas import pack_splats
 
 BLOCK_ROWS = 8
 COL_W = 128

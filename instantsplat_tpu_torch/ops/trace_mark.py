@@ -13,7 +13,7 @@ import time
 
 import torch
 
-from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
+from instantsplat_tpu_torch.ops.cuda_build import Kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 TRACE_MARK = Kernel("trace_mark", [_P, _P, _I, _I, _I, _P],

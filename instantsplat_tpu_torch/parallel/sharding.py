@@ -32,10 +32,11 @@ runs the front end's backward on every chip; here that backward runs on
 atomics on the card, whose sums are not reproducible bit for bit, so the
 ranks' "replicated" parameters could drift apart.
 
-Host-side decisions are shared: under a capacity backend the overflow
-guard reads every rank's overflow flag, all-reduced with MAX, so all
-ranks demote together (inside a block of steps the flag is recorded on
-the device and read at the block's end, render/driver.py).
+Host-side decisions are shared: under a capacity backend each rank's
+row block goes through the driver's overflow guard with its lists'
+overflow flag all-reduced with MAX, so all ranks demote together (inside
+a block of steps the flag is recorded on the device and read at the
+block's end; render/driver.row_block_lists).
 """
 
 from __future__ import annotations
@@ -44,12 +45,10 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from instantsplat_tpu_torch.ops import rasterize_pallas
 from instantsplat_tpu_torch.ops.rasterize import composite_out, composite_plain
 from instantsplat_tpu_torch.ops.rasterize_lists import composite_lists
-from instantsplat_tpu_torch.ops import rasterize_pallas_binned as binned
 from instantsplat_tpu_torch.parallel.runtime import (
     all_gather_cat,
     all_reduce_flat,
@@ -151,14 +150,16 @@ def _shift_rows(packed, y0: float):
 
 
 def rows_local(packed, rank: int, world: int, height: int, width: int,
-               backend: str = "pallas", chunk: int = 256):
+               backend: str = "pallas", chunk: int = 256, group=None):
     """This rank's row block of the image: (acc [4, rows, W], tfin [rows,
     W]) for the rows [rank * rows, (rank + 1) * rows), rows =
     ceil(height / world). backend "pallas": KR/K1/K2 on the splats shifted
     by -y0; "pallas-binned[:CF:DL]" (or any other capacity string, as the
-    JAX package reads it): K3/K4 over the block's own band lists; "oracle":
-    the plain compositor at a row offset. On a CPU tensor every kernel
-    backend runs its plain version."""
+    JAX package reads it): K3/K4 over the block's own band lists, through
+    the driver's overflow guard (its flag all-reduced over `group`; a
+    demoted signature runs KR/K1/K2); "oracle": the plain compositor at a
+    row offset. On a CPU tensor every kernel backend runs its plain
+    version."""
     rows = _padded_rows(height, world)
     y0 = float(rank * rows)
     if backend == "oracle":
@@ -166,12 +167,13 @@ def rows_local(packed, rank: int, world: int, height: int, width: int,
                                        y_offset=y0)
         return acc, tfin
     local = _shift_rows(packed, y0)
-    if backend == "pallas":
+    lists = (None if backend == "pallas" else
+             driver.row_block_lists(local, rows, width, backend, group))
+    if lists is None:
         return rasterize_pallas.composite_packed(local, rows, width)
-    cf, dl = driver._parse_binned_caps(backend)
-    lists, geom = binned.bin_lists(local, rows, width, cf, dl)
-    return composite_lists(local, lists, geom, rows, width, binned.K3,
-                           binned.K4)
+    slots, geom, forward, backward = lists
+    return composite_lists(local, slots, geom, rows, width, forward,
+                           backward)
 
 
 def pad_slices(packed, world: int):
@@ -257,35 +259,6 @@ def _packed(gaussians, camera, pose, active_sh_degree, scale_modifier):
     return packed
 
 
-def _shared_backend(packed, backend: str, rows: int, width: int, group):
-    """The per-block capacity backend, or "pallas" once any rank's block
-    lists overflow: the driver's overflow guard, reading the flag
-    all-reduced with MAX so every rank takes the same decision."""
-    if backend in ("oracle", "pallas"):
-        return backend
-    cf, dl = driver._parse_binned_caps(backend)
-    key = ("sharded", int(packed.shape[0]), rows, width, cf, dl)
-
-    def overflow():
-        """Any rank's block lists overflow: a device flag."""
-        p = packed.detach()
-        flag = binned.bin_overflow(p[:, :2], p[:, 2:5], p[:, 5],
-                                   driver.splat_valid(p), rows, width, cf,
-                                   dl).to(torch.int32).reshape(1)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-        return flag[0] > 0
-
-    def warn():
-        driver._log.warning(
-            "sharded binned rasterizer: a row block's lists overflow for "
-            "N=%d %dx%d; this signature runs the dense kernels on every "
-            "rank from now on", key[1], rows, width)
-
-    # inside a block of steps the guard records the flag on the device and
-    # reads it at the block's end
-    return "pallas" if driver._guard.check(key, overflow, warn) else backend
-
-
 def sharded_render(gaussians, camera, mesh, pose=None, bg=None,
                    active_sh_degree: Optional[int] = None, chunk: int = 256,
                    scale_modifier: float = 1.0, backend: str = "oracle"):
@@ -303,9 +276,7 @@ def sharded_render(gaussians, camera, mesh, pose=None, bg=None,
     gaussians, pose = replicated_inputs(gaussians, pose, mesh)
     packed = _packed(gaussians, camera, pose, active_sh_degree,
                      scale_modifier)
-    backend = _shared_backend(packed, backend, _padded_rows(h, ndev), w,
-                              group)
-    acc, tfin = rows_local(packed, rank, ndev, h, w, backend, chunk)
+    acc, tfin = rows_local(packed, rank, ndev, h, w, backend, chunk, group)
     acc, tfin = join_rows(_gather(acc, group, rank),
                           _gather(tfin, group, rank), h)
     out = composite_out(acc, tfin, bg)

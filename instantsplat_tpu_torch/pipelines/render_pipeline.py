@@ -45,9 +45,7 @@ from instantsplat_tpu_torch.models.camera import Camera
 from instantsplat_tpu_torch.ops.losses import masked_l1_loss
 from instantsplat_tpu_torch.parallel import runtime
 from instantsplat_tpu_torch.pipelines.train_pipeline import load_trained
-from instantsplat_tpu_torch.pipelines.trainer import (_binned_candidate,
-                                                      _is_capacity_backend,
-                                                      _sync)
+from instantsplat_tpu_torch.pipelines.trainer import _sync
 from instantsplat_tpu_torch.render import driver
 from instantsplat_tpu_torch.render.driver import render
 from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop
@@ -68,12 +66,12 @@ def resolve_backend(params, camera: Camera, pose: torch.Tensor,
                     bg: torch.Tensor, backend: str) -> str:
     """backend 'auto' -> time one warm forward render of the dense kernels
     and of the capacity candidate sized for this view (tiled, else binned;
-    pipelines/trainer._binned_candidate) and keep the faster; both are
+    driver.capacity_candidate) and keep the faster; both are
     exact. Other values pass through."""
     if backend != "auto":
         return backend
     candidates = ["pallas"]
-    cand = _binned_candidate(params, camera, pose)
+    cand = driver.capacity_candidate(params, camera, pose)
     if cand is not None:
         candidates.append(cand)
     dev = pose.device
@@ -181,15 +179,16 @@ def make_pose_refiner(params, camera: Camera, backend="pallas",
             pose.sub_(upd)
             k.add_(1)
 
-    loops: dict = {}  # the demoted capacity signatures it runs under -> loop
+    # the graph key (driver.graph_key) -> (the loop, the overflow flags its
+    # graph records)
+    loops: dict = {}
     pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
 
     def refine(pose0, gt, intr=None):
-        key = _is_capacity_backend(backend) and frozenset(
-            driver._guard.demoted)
+        key = driver.graph_key(backend)
         if key not in loops:
             loops.clear()
-            loops[key] = StepLoop(step, dev, "make_pose_refiner", pool)
+            loops[key] = StepLoop(step, dev, "make_pose_refiner", pool), {}
         if intr is None:
             intr = (camera.fx, camera.fy, camera.cx, camera.cy)
         with torch.no_grad():
@@ -202,7 +201,9 @@ def make_pose_refiner(params, camera: Camera, backend="pallas",
             intr_s.copy_(torch.stack([torch.as_tensor(
                 x, dtype=torch.float32, device=dev) for x in intr]))
             k.zero_()
-        loops[key].run(num_iter)
+        loop, flags = loops[key]
+        with driver.recording_overflow(flags):
+            loop.run(num_iter)
         return best_pose.clone(), best_loss.clone()
 
     return refine

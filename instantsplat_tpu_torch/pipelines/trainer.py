@@ -11,7 +11,7 @@ black or white background, the `log_every` history, resume from an
 (opt_state, first_iter) pair, mixed-aspect scenes (each view rendered at
 its own shape), and backend="auto": the timed probe of the dense kernels
 against a capacity backend sized for the scene, and its periodic re-probe
-(see train_joint).
+(_AutoProbe).
 
 The iterations run in blocks, as JAX's `make_train_scan` runs them
 (`TrainerConfig.scan`, the default): on a card each block is replays of
@@ -37,7 +37,7 @@ its second block.
 
 What the loop records (utils/profiling.py): the spans `train.block` (each
 block), `train.probe` (the auto probe's and a re-probe's sizing and
-blocks; `train.size_caps` inside `_binned_candidate`), `train.upload`
+blocks; `train.size_caps` inside driver.capacity_candidate), `train.upload`
 (a block's view and Adam tables), `train.marks` (their read, tracing
 on), `train.log` (the metrics' read and progress_cb at a log); the
 counters `train.iterations.<family>` (by backend family, `eager` for the
@@ -67,14 +67,9 @@ from instantsplat_tpu_torch.opt.gaussian_opt import (
     GaussianOptimizer,
     OptimizationConfig,
 )
-from instantsplat_tpu_torch.ops import rasterize_pallas_tiled
 from instantsplat_tpu_torch.ops.losses import photometric_loss, psnr
 from instantsplat_tpu_torch.render import driver
-from instantsplat_tpu_torch.render.driver import (
-    binned_view_requirements,
-    render,
-    tiled_view_requirements,
-)
+from instantsplat_tpu_torch.render.driver import render
 from instantsplat_tpu_torch.utils import profiling
 from instantsplat_tpu_torch.utils.cuda_graphs import StepLoop, to_device
 
@@ -206,12 +201,13 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
     (utils/cuda_graphs.StepLoop). A graph is kept per (active_sh, the
     demoted capacity signatures for a capacity backend, the tensors'
     storage, whether tracing is on), all in one memory pool (`pool`, or
-    one of this block function's own). On the CPU the same step runs in a
-    Python loop. With tracing on (utils/profiling.enable) the block marks
-    its start and each step its STEP_MARKS into a table beside the view
-    ids, and the block's end reads the block's rows (one copy to the host)
-    into the phase table under ("make_train_scan", the backend's family);
-    off, nothing is marked and no hook registered.
+    one of this block function's own), beside the overflow flags its
+    renders record (driver.recording_overflow). On the CPU the same step
+    runs in a Python loop. With tracing on (utils/profiling.enable) the
+    block marks its start and each step its STEP_MARKS into a table beside
+    the view ids, and the block's end reads the block's rows (one copy to
+    the host) into the phase table under ("make_train_scan", the backend's
+    family); off, nothing is marked and no hook registered.
     With a mesh the graph holds the sharded render's collectives (NCCL),
     and the block's view ids are rank 0's, broadcast on the device once a
     block.
@@ -223,13 +219,12 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
     groups = () if mesh is None else [mesh.get_group(name) for name in
                                       mesh.mesh_dim_names]
     blocks: dict = {}
-    family = backend.split(":")[0]
+    family = driver.family(backend)
 
     def statics(params, opt_state, k: int, active_sh: int):
         """(the loop, its tensors) of this block's key, with room for k
         iterations (more room means a new capture)."""
-        key = (active_sh, _is_capacity_backend(backend)
-               and frozenset(driver._guard.demoted),
+        key = (active_sh, driver.graph_key(backend),
                tuple(t.data_ptr() for t in params.tensors()
                      + list(opt_state.m.values())
                      + list(opt_state.v.values())),
@@ -240,7 +235,7 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
             # reference cycle keeps a dead graph for the cyclic collector)
             bufs = SimpleNamespace(cap=0, counter=torch.zeros(
                 1, dtype=torch.int64, device=dev), marks=None,
-                traced=key[-1])
+                traced=key[-1], flags={})
 
             def step():
                 i = bufs.counter
@@ -289,7 +284,8 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
                 dist.broadcast(bufs.views[:k],
                                dist.get_global_rank(groups[0], 0),
                                group=groups[0])
-        metrics = loop.run(k)
+        with driver.recording_overflow(bufs.flags):
+            metrics = loop.run(k)
         opt_state.step += k
         if bufs.marks is not None:
             with profiling.annotate("train.marks"):
@@ -301,13 +297,6 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
     return train_block
 
 
-# backend='auto': refuse binned/tiled above these capacities (list memory
-# and build cost scale with cap_factor * N and with the candidate level
-# product; extreme requirements mean the scene is dense-kernel territory)
-_MAX_BINNED_CAP_FACTOR = 16
-_MAX_BINNED_D_LEVELS = 128
-_MAX_TILED_LEVEL_PRODUCT = 64  # dy * dx (the candidate sort is O(N*dy*dx))
-
 # Periodic backend re-probe cadence (iterations); module-level so tests can
 # shrink it
 _REPROBE_EVERY = 250
@@ -318,65 +307,125 @@ _SWITCH_SHARE = 0.87
 _clock = time.perf_counter
 
 
-def _tiled_candidate(params, camera, pose) -> Optional[str]:
-    """'pallas-tiled:CF:DY:DX' sized for the CURRENT scene seen from
-    `pose`, or None when out of range (huge splats blow the level product;
-    huge images blow the int32 tile*splat key space)."""
-    n = int(params.xyz.shape[0])
-    if rasterize_pallas_tiled.geometry(camera.height, camera.width).n_seg \
-            * (n + 1) >= 2**31:
-        return None
-    cf, dy, dx = tiled_view_requirements(params, pose, camera)
-    if cf > _MAX_BINNED_CAP_FACTOR or dy * dx > _MAX_TILED_LEVEL_PRODUCT:
-        return None
-    return f"pallas-tiled:{cf}:{dy}:{dx}"
-
-
-def _binned_candidate(params, camera, pose=None) -> Optional[str]:
-    """The capacity backend string for backend='auto' whose capacities hold
-    every splat of the CURRENT scene state seen from `pose` (default: the
-    learnable pose of view 0), or None when the needed capacity is
-    unreasonable. Prefers the 2-D tiled backend (tighter culling); falls
-    back to the 1-D binned one when the tile levels are out of range
-    (giant splats). A failed probe logs a warning and returns None (auto
-    then stays dense)."""
-    if pose is None:
-        pose = params.get_pose(0)
-    try:
-        with profiling.annotate("train.size_caps"):
-            cand = _tiled_candidate(params, camera, pose)
-            if cand is not None:
-                return cand
-            cf, dl = binned_view_requirements(params, pose, camera)
-        if cf > _MAX_BINNED_CAP_FACTOR or dl > _MAX_BINNED_D_LEVELS:
-            return None
-        return f"pallas-binned:{cf}:{dl}"
-    except Exception as e:  # noqa: BLE001 - auto must never kill training,
-        # but a swallowed probe failure forfeits the faster backend, so it
-        # is made visible
-        _log.warning("backend auto: binned sizing probe failed (%s: %s); "
-                     "falling back to dense", type(e).__name__, e)
-        return None
-
-
-def _is_capacity_backend(name: Optional[str]) -> bool:
-    return bool(name) and name.startswith(("pallas-binned", "pallas-tiled"))
-
-
-def _binned_caps_grew(old: str, new: str) -> bool:
-    """True when `new`'s capacities exceed `old`'s in any dimension (smaller
-    fresh requirements are still drop-free under the larger capacities). A
-    kind change (tiled <-> binned) always counts."""
-    okind, *ocaps = old.split(":")
-    nkind, *ncaps = new.split(":")
-    if okind != nkind or len(ocaps) != len(ncaps) or not ocaps:
-        return old != new
-    return any(int(nc) > int(oc) for oc, nc in zip(ocaps, ncaps))
-
-
 def _sync(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+class _AutoProbe:
+    """Each train_joint block's backend and most iterations (log_every).
+    backend="auto" runs the dense kernels, probed against `other`, the
+    capacity candidate sized on `camera` (none for mixed shapes or a mesh:
+    dense alone). A probe is a plan of (side, timed) blocks; a timed block
+    synchronises before and after. The first runs four blocks of
+    min(10, log_every), dense then the candidate, and keeps the faster.
+    Every _REPROBE_EVERY iterations the capacity side is re-sized against
+    the live scene (or demoted when nothing fits) and one block is timed
+    on each; the loop switches when the other takes below _SWITCH_SHARE
+    of the current one's time."""
+
+    def __init__(self, backend: str, params, camera: Optional[Camera],
+                 first_iter: int, log_every: int):
+        self.camera, self.log_every = camera, log_every
+        self.probe_len = max(1, min(10, log_every))
+        self.current = backend  # the backend kept
+        self.other: Optional[str] = None  # the one probed against it
+        if backend == "auto":
+            self.current = "pallas"
+            if camera is not None:
+                with profiling.annotate("train.probe"):
+                    self.other = driver.capacity_candidate(params, camera)
+        self.plan = [] if self.other is None else [
+            ("current", False), ("current", True), ("other", False),
+            ("other", True)]
+        self.first = bool(self.plan)  # the first probe has not decided
+        self.times: dict = {}  # side -> seconds an iteration
+        self.next_reprobe = first_iter + 1 + _REPROBE_EVERY
+
+    def next_block(self, it: int, params) -> tuple[str, int]:
+        """(backend, most iterations) of the block starting at iteration
+        `it`; at a re-probe's start, the capacity side re-sized first."""
+        if (not self.plan and self.other is not None
+                and it >= self.next_reprobe):
+            self._resize(it, params)
+        other = self.plan and self.plan[0][0] == "other"
+        return (self.other if other else self.current,
+                self.probe_len if self.first else self.log_every)
+
+    @contextlib.contextmanager
+    def timing_block(self, it: int, n: int, dev):
+        """The spans of the block of n iterations starting at `it`
+        (`train.probe` around a probe's block), its time per iteration
+        reported to the probe at its end. The clock is read inside the
+        caller's profile trace: its start, stop and export stay out of the
+        probe's time."""
+        timed = bool(self.plan) and self.plan[0][1]
+        with (profiling.annotate("train.probe") if self.plan
+              else contextlib.nullcontext()), \
+                profiling.annotate("train.block"):
+            if timed:
+                _sync(dev)
+            t_blk = _clock()
+            yield
+            if timed:
+                _sync(dev)
+            per_iter = (_clock() - t_blk) / n
+        if self.plan:
+            side, _ = self.plan.pop(0)
+            if timed:
+                self.times[side] = per_iter
+            if not self.plan:
+                self._decide(it)
+
+    def _resize(self, it: int, params):
+        """Re-size the capacity side against the live scene (its
+        capacities were sized when it was chosen) and plan the re-probe;
+        with no candidate that fits, demote it and skip this window."""
+        on_current = driver.is_capacity(self.current)
+        if on_current or driver.is_capacity(self.other):
+            with profiling.annotate("train.probe"):
+                fresh = driver.capacity_candidate(params, self.camera)
+            old = self.current if on_current else self.other
+            if fresh is None:
+                if on_current:
+                    self.current, self.other = self.other, self.current
+                    profiling.count("train.switches")
+                    print("[train] backend auto: demoting binned at "
+                          f"iter {it} — required capacities now "
+                          "unreasonable for this scene", flush=True)
+                self.next_reprobe = it + _REPROBE_EVERY
+                return
+            if driver.capacities_grew(old, fresh):
+                if on_current:
+                    self.current = fresh
+                else:
+                    self.other = fresh
+                profiling.count("train.resizes")
+                print(f"[train] backend auto: binned capacities resized "
+                      f"{old} -> {fresh} at iter {it}", flush=True)
+        self.plan = [("current", True), ("other", True)]
+        profiling.count("train.reprobes")
+
+    def _decide(self, it: int):
+        """The probe's last block, starting at `it`, has run: keep the
+        faster backend (the first probe's current is dense)."""
+        t_cur, t_other = self.times["current"], self.times["other"]
+        switch = t_other < (1.0 if self.first else _SWITCH_SHARE) * t_cur
+        if switch:
+            self.current, self.other = self.other, self.current
+        if self.first:
+            self.first = False
+            t = {"dense": t_cur, "binned": t_other}
+            win, lose = ("binned", "dense") if switch else ("dense", "binned")
+            print(f"[train] backend auto: {win} ({t[win] * 1e3:.0f} ms/iter) "
+                  f"beats {lose} ({t[lose] * 1e3:.0f} ms/iter)", flush=True)
+            return
+        if switch:
+            profiling.count("train.switches")
+            print(f"[train] backend auto: switching at iter {it} — "
+                  f"other backend {t_other * 1e3:.0f} ms/iter beats "
+                  f"current {t_cur * 1e3:.0f}", flush=True)
+        self.next_reprobe = it + _REPROBE_EVERY
 
 
 def train_joint(
@@ -414,16 +463,9 @@ def train_joint(
     with or without a mesh, each block is one call of a make_train_scan
     block function of its backend (on a card: graph replays); otherwise
     train_step runs per iteration. Both read the same Adam table, so the
-    two give the same bits on the CPU. With
-    backend="auto" on a scene of one image shape, blocks of
-    probe = min(10, log_every) iterations come first: blocks 0-1 run the
-    dense kernels and blocks 2-3 the capacity candidate (_binned_candidate,
-    sized on camera 0); the second block of each is timed and the faster
-    backend is kept. Every _REPROBE_EVERY iterations the capacity side is
-    re-sized against the live scene (or demoted when it no longer fits),
-    one block is timed on each backend, and the loop switches when the
-    other takes below _SWITCH_SHARE of the current one's time. The view
-    order, iteration numbers and SH ramp are those of a fixed backend.
+    two give the same bits on the CPU. _AutoProbe picks each block's
+    backend and length; under auto, the view order, iteration numbers and
+    SH ramp are those of a fixed backend.
     Mixed-shape scenes resolve auto to the dense kernels.
     """
     dev = params.xyz.device
@@ -464,6 +506,9 @@ def train_joint(
                 queue = runtime.broadcast_object(queue, group)
         return int(queue.pop())
 
+    probe = _AutoProbe(trainer_cfg.backend, params,
+                       None if mixed_shapes or mesh is not None
+                       else cameras[0], first_iter, log_every)
     if use_scan:
         stacked = stack_cameras(cameras)
         pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
@@ -472,7 +517,7 @@ def train_joint(
         def block_fn(name: str):
             """The block function of `name`; those of names no longer in
             play are dropped with their graphs."""
-            for stale in set(block_fns) - {name, cur_name, alt_name}:
+            for stale in set(block_fns) - {name, probe.current, probe.other}:
                 del block_fns[stale]
             if name not in block_fns:
                 block_fns[name] = make_train_scan(
@@ -480,19 +525,6 @@ def train_joint(
                     trainer_cfg.chunk, mesh=mesh,
                     shard_axis=trainer_cfg.shard_axis, pool=pool)
             return block_fns[name]
-    cur_name = trainer_cfg.backend
-    alt_name: Optional[str] = None
-    if cur_name == "auto":
-        cur_name = "pallas"
-        if not mixed_shapes and mesh is None:
-            with profiling.annotate("train.probe"):
-                alt_name = _binned_candidate(params, cameras[0])
-    probe = max(1, min(10, log_every))
-    # None while the first probe runs (blocks of `probe`), then log_every
-    block_cap: Optional[int] = None if alt_name is not None else log_every
-    per_iter_main = per_cur_probe = 0.0
-    next_reprobe = first_iter + 1 + _REPROBE_EVERY
-    reprobe_state = 0  # 0 idle, 1 timing current, 2 timing other
 
     history = []
     t0 = time.time()
@@ -504,62 +536,15 @@ def train_joint(
                   * log_every)
         if it // interval < params.max_sh_degree:
             end = min(end, (it // interval + 1) * interval - 1)
-        end = min(end, it + (block_cap or probe) - 1)
-        name = (alt_name if block_cap is None and block_idx in (2, 3)
-                else cur_name)
-        if (block_cap is not None and alt_name is not None
-                and reprobe_state == 0 and it >= next_reprobe):
-            # re-size the capacity side against the live scene before
-            # timing: its capacities were sized when it was chosen
-            binned_side = ("cur" if _is_capacity_backend(cur_name)
-                           else "alt" if _is_capacity_backend(alt_name)
-                           else None)
-            start_timing = True
-            if binned_side is not None:
-                with profiling.annotate("train.probe"):
-                    fresh = _binned_candidate(params, cameras[0])
-                old = cur_name if binned_side == "cur" else alt_name
-                if fresh is None:
-                    if binned_side == "cur":
-                        cur_name, alt_name = alt_name, cur_name
-                        name = cur_name
-                        profiling.count("train.switches")
-                        print("[train] backend auto: demoting binned at "
-                              f"iter {it} — required capacities now "
-                              "unreasonable for this scene", flush=True)
-                    start_timing = False  # skip this window; retry later
-                elif _binned_caps_grew(old, fresh):
-                    if binned_side == "cur":
-                        cur_name = name = fresh
-                    else:
-                        alt_name = fresh
-                    profiling.count("train.resizes")
-                    print(f"[train] backend auto: binned capacities resized "
-                          f"{old} -> {fresh} at iter {it}", flush=True)
-            if start_timing:
-                reprobe_state = 1
-                profiling.count("train.reprobes")
-            else:
-                next_reprobe = it + _REPROBE_EVERY
-        if reprobe_state == 2:
-            name = alt_name
-        timed = (block_cap is None and block_idx in (1, 3)) or reprobe_state
+        name, most = probe.next_block(it, params)
+        end = min(end, it + most - 1)
         active_sh = min(it // interval, params.max_sh_degree)
         profiling.count("train.iterations."
-                        + (name.split(":")[0] if use_scan else "eager"),
+                        + (driver.family(name) if use_scan else "eager"),
                         end - it + 1)
         with profiling.profile_trace(trainer_cfg.profile_dir,
                                      enabled=block_idx == 1), \
-                (profiling.annotate("train.probe")
-                 if block_cap is None or reprobe_state
-                 else contextlib.nullcontext()), \
-                profiling.annotate("train.block"):
-            # the clock is read inside the traced region: the trace's start,
-            # stop and export (block 1 under profile_dir) stay out of the
-            # auto probe's time
-            if timed:
-                _sync(dev)
-            t_blk = _clock()
+                probe.timing_block(it, end - it + 1, dev):
             if use_scan:
                 views = [next_view() for _ in range(it, end + 1)]
                 params, opt_state, metrics = block_fn(name)(
@@ -578,34 +563,6 @@ def train_joint(
                                          opt_cfg.lambda_dssim, name,
                                          trainer_cfg.chunk, **sharded,
                                          scalars=table[j])
-            if timed:
-                _sync(dev)
-            per_iter = (_clock() - t_blk) / (end - it + 1)
-        if reprobe_state == 1:
-            per_cur_probe = per_iter
-            reprobe_state = 2
-        elif reprobe_state == 2:
-            if per_iter < _SWITCH_SHARE * per_cur_probe:
-                cur_name, alt_name = alt_name, cur_name
-                profiling.count("train.switches")
-                print(f"[train] backend auto: switching at iter {it} — "
-                      f"other backend {per_iter * 1e3:.0f} ms/iter beats "
-                      f"current {per_cur_probe * 1e3:.0f}", flush=True)
-            reprobe_state = 0
-            next_reprobe = it + _REPROBE_EVERY
-        if block_cap is None and block_idx == 1:
-            per_iter_main = per_iter
-        if block_cap is None and block_idx == 3:
-            if per_iter < per_iter_main:
-                cur_name, alt_name = alt_name, cur_name
-                win, lose, t_win, t_lose = ("binned", "dense", per_iter,
-                                            per_iter_main)
-            else:
-                win, lose, t_win, t_lose = ("dense", "binned", per_iter_main,
-                                            per_iter)
-            print(f"[train] backend auto: {win} ({t_win * 1e3:.0f} ms/iter) "
-                  f"beats {lose} ({t_lose * 1e3:.0f} ms/iter)", flush=True)
-            block_cap = log_every
         block_idx += 1
         if end % log_every == 0 or end == trainer_cfg.iterations:
             with profiling.annotate("train.log"):

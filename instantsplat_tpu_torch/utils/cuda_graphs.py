@@ -18,14 +18,9 @@ captured, raises naming the loop; nothing falls back to eager steps. On
 the CPU the same step runs in a Python loop: that is the plain version,
 which the tests hold to the eager loops bit for bit.
 
-The capacity backends' overflow guard (render/driver.py) ORs each call's
-overflow flag into the loop's `flags` while a block runs; the flags are
-read once, at the block's end, where overflowing signatures are demoted.
-
 Spans (utils/profiling.py): `steploop.warmup` (the eager steps on the side
 stream), `steploop.capture`, `steploop.replay` (the replays' launches),
-`steploop.loop` (the CPU's Python loop), `steploop.settle` (the overflow
-flags' read); the counter `steploop.captures`.
+`steploop.loop` (the CPU's Python loop); the counter `steploop.captures`.
 
 What the loops share:
 - `StepTable`: a loop's per-step scalars (learning rates, bias
@@ -49,6 +44,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from instantsplat_tpu_torch.ops.cuda_build import Kernel
 from instantsplat_tpu_torch.utils import profiling
 
 WARMUP = 3  # eager steps on a side stream before a loop's first capture
@@ -148,12 +144,6 @@ def _zip(fn, dst, src):
         fn(dst, src)
 
 
-def _kernels():
-    from instantsplat_tpu_torch.ops.rasterize_pallas import Kernel
-
-    return Kernel.registry
-
-
 class StepLoop:
     """`step()` run n times: replays of one captured CUDA graph on a card,
     a Python loop on the CPU. `step` returns what the loop reports (a
@@ -177,7 +167,6 @@ class StepLoop:
                         f"{name}: a captured step's collectives need a NCCL "
                         f"group, not {dist.get_backend(g)} (CUDA tensors on "
                         "a host backend synchronise with the host)")
-        self.flags: dict = {}  # overflow guard flags (render/driver.py)
         self.graph = None
         self.warm = 0
         self.out = None
@@ -196,19 +185,10 @@ class StepLoop:
 
     def run(self, n: int):
         """Run n steps; -> the last step's outputs."""
-        from instantsplat_tpu_torch.render import driver
-
-        for f in self.flags.values():
-            f.zero_()
-        with driver.recording_overflow(self.flags):
-            if self.captured:
-                out = self._run(n)
-            else:
-                with profiling.annotate("steploop.loop"):
-                    out = self._loop(n)
-        with profiling.annotate("steploop.settle"):
-            driver.settle_overflow(self.flags)
-        return out
+        if self.captured:
+            return self._run(n)
+        with profiling.annotate("steploop.loop"):
+            return self._loop(n)
 
     def _loop(self, n: int):
         out = None
@@ -242,7 +222,7 @@ class StepLoop:
         return self.out
 
     def _capture(self):
-        for kernel in _kernels():
+        for kernel in Kernel.registry:
             kernel.captured = 0
         graph = torch.cuda.CUDAGraph()
         if self.groups:
@@ -265,6 +245,7 @@ class StepLoop:
         finally:
             if was_enabled:
                 gc.enable()
-        self.per_replay = {k: k.captured for k in _kernels() if k.captured}
+        self.per_replay = {k: k.captured for k in Kernel.registry
+                           if k.captured}
         self.graph, self.out = graph, out
         profiling.count("steploop.captures")

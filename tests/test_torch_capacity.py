@@ -4,9 +4,10 @@ backend="auto" against the JAX package, on the CPU.
 - list construction (_build_bins/_build_tiles): the same slots, chunk map
   and overflow flag for the same capacities;
 - sizing (bin_/tile_requirements, the driver's *_view_requirements),
-  overflow flags and the trainer's _binned_candidate: the same tuples,
+  overflow flags and the driver's capacity_candidate: the same tuples,
   flags and strings;
-- the driver's overflow guard: rate-limited, demotes with a warning;
+- the driver's overflow guard: rate-limited, demotes with a warning, one
+  list build a call;
 - the trainer's auto probe and re-probe, with a rigged train step, and an
   auto run's loss curve against a fixed-dense run;
 - mixed-aspect training against the JAX trainer (oracle backend).
@@ -202,7 +203,8 @@ def test_overflow_flags_match_jax(caps):
 def test_binned_caps_grew_matches_jax(old, new):
     import instantsplat_tpu.pipelines.trainer as jtr
 
-    assert tr._binned_caps_grew(old, new) == jtr._binned_caps_grew(old, new)
+    assert driver.capacities_grew(old, new) == jtr._binned_caps_grew(old,
+                                                                     new)
 
 
 def test_tiled_key_space_guard():
@@ -274,7 +276,7 @@ def test_binned_candidate_matches_jax_on_grid_scene():
                        max_sh_degree=0)
     cam = Camera.create(np.eye(3), np.zeros(3), fx=300.0, fy=300.0,
                         height=384, width=512, uid=0, device="cpu")
-    cand = tr._binned_candidate(tp, cam)
+    cand = driver.capacity_candidate(tp, cam)
     assert cand == jtr._binned_candidate(jp, jcam)
     assert cand.startswith("pallas-tiled:"), cand
     # giant splats: tile levels pass the product cap -> the binned string
@@ -282,7 +284,7 @@ def test_binned_candidate_matches_jax_on_grid_scene():
     tp.scaling += float(np.log(np.float32(256.0)))
     np.testing.assert_array_equal(tp.scaling.numpy(),
                                   np.asarray(jbig.scaling))
-    cand_big = tr._binned_candidate(tp, cam)
+    cand_big = driver.capacity_candidate(tp, cam)
     assert cand_big == jtr._binned_candidate(jbig, jcam)
     assert cand_big is None or cand_big.startswith("pallas-binned:")
 
@@ -320,10 +322,10 @@ def test_view_requirements_match_jax():
 
 
 @pytest.fixture
-def fresh_guard(monkeypatch):
-    guard = driver._OverflowGuard()
-    monkeypatch.setattr(driver, "_guard", guard)
-    return guard
+def fresh_guard():
+    driver.reset_overflow_guard()
+    yield
+    driver.reset_overflow_guard()
 
 
 def _small_scene(seed=0, n=150, shapes=((24, 32),) * 3, sh=1):
@@ -373,7 +375,7 @@ def test_guard_demotes_with_warning(fresh_guard, caplog, kind):
         driver.render(g, cams[0], backend=backend)
     warned = [r for r in caplog.records if "auto-switching" in r.message]
     assert len(warned) == 1, caplog.text
-    assert len(fresh_guard.demoted) == 1
+    assert len(driver.demoted()) == 1
     ref = driver.render(g, cams[0], backend="pallas")
     torch.testing.assert_close(out.render, ref.render)
 
@@ -384,19 +386,49 @@ def test_guard_checks_at_its_rate(fresh_guard, monkeypatch):
     arrays, specs = _small_scene()
     g, cams = _port(arrays, specs)
     calls = []
-    real = T.tile_overflow
+    real = T.tile_lists
+
+    class Read:
+        """An overflow flag whose host reads are counted."""
+
+        def __init__(self, flag):
+            self.flag = flag
+
+        def __bool__(self):
+            calls.append(1)
+            return bool(self.flag)
 
     def counted(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
+        lists, geom = real(*a, **k)
+        return lists._replace(overflow=Read(lists.overflow)), geom
 
-    monkeypatch.setattr(T, "tile_overflow", counted)
+    monkeypatch.setattr(T, "tile_lists", counted)
     monkeypatch.setattr(driver, "_BINNED_CHECK_EVERY", 3)
     cf, dy, dx = driver.tiled_view_requirements(g, g.get_pose(0), cams[0])
     with torch.no_grad():
         for _ in range(7):
             driver.render(g, cams[0], backend=f"pallas-tiled:{cf}:{dy}:{dx}")
-    assert len(calls) == 3 and not fresh_guard.demoted
+    assert len(calls) == 3 and not driver.demoted()
+
+
+@pytest.mark.parametrize("backend", ["pallas-binned", "pallas-tiled"])
+def test_checked_call_builds_its_lists_once(fresh_guard, monkeypatch,
+                                            backend):
+    """A call outside a block whose overflow flag the guard reads (a
+    signature's first) builds its lists once, and composites those."""
+    arrays, specs = _small_scene()
+    g, cams = _port(arrays, specs)
+    module = B if backend == "pallas-binned" else T
+    builds = []
+    real = module.build_lists
+    monkeypatch.setattr(module, "build_lists",
+                        lambda *a: builds.append(1) or real(*a))
+    with torch.no_grad():
+        out = driver.render(g, cams[0], backend=backend)
+    assert len(builds) == 1 and not driver.demoted()
+    with torch.no_grad():
+        ref = driver.render(g, cams[0], backend="pallas")
+    torch.testing.assert_close(out.render, ref.render)
 
 
 # ---- the trainer's auto probe -----------------------------------------
@@ -449,7 +481,7 @@ def test_auto_probe_keeps_the_faster(monkeypatch, capsys, fresh_guard,
     backend runs every later iteration (JAX trainer.py:578-600)."""
     arrays, specs = _small_scene(n=60)
     g, cams = _port(arrays, specs)
-    cand = tr._binned_candidate(g, cams[0])
+    cand = driver.capacity_candidate(g, cams[0])
     assert cand is not None and cand.startswith("pallas-tiled:")
     seen = _rig(monkeypatch, lambda b: _is_dense(b) == (slow == "dense"))
     train_joint(g, cams, OptimizationConfig(optim_pose=True),
@@ -512,11 +544,11 @@ def test_reprobe_resizes_then_demotes(monkeypatch, capsys, fresh_guard):
     g, cams = _port(arrays, specs)
     monkeypatch.setattr(tr, "_REPROBE_EVERY", 6)
     seen = _rig(monkeypatch, _is_dense)
-    base = tr._binned_candidate(g, cams[0])
+    base = driver.capacity_candidate(g, cams[0])
     kind, cf, *levels = base.split(":")
     grown = ":".join([kind, str(int(cf) + 1), *levels])
     answers = iter([base, grown, None, None])
-    monkeypatch.setattr(tr, "_binned_candidate",
+    monkeypatch.setattr(driver, "capacity_candidate",
                         lambda params, camera: next(answers))
     train_joint(g, cams, OptimizationConfig(optim_pose=True),
                 TrainerConfig(iterations=24, log_every=2, backend="auto"))

@@ -38,6 +38,7 @@ from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
 from instantsplat_tpu_torch.parallel import launch
 from instantsplat_tpu_torch.pipelines import trainer as tr
 from instantsplat_tpu_torch.pipelines.render_pipeline import make_pose_refiner
+from instantsplat_tpu_torch.render import driver
 from instantsplat_tpu_torch.utils import profiling
 from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
 from torch_host_reads import HostRead, guarded_loops, no_host_reads
@@ -85,7 +86,7 @@ def test_train_scan_blocks_read_nothing(tiny, backend, traced):
     info, g0 = tiny
     g = g0.replace(**{f: getattr(g0, f).clone() for f in PARAM_FIELDS})
     if backend == "capacity":
-        backend = tr._binned_candidate(g, info.cameras[0])
+        backend = driver.capacity_candidate(g, info.cameras[0])
         assert backend is not None
     profiling.reset()
     profiling.enable(traced)

@@ -45,3 +45,14 @@ def test_rule_catches_forbidden_names():
     assert _forbidden("optax") and _forbidden("flax.linen")
     assert not _forbidden("instantsplat_tpu_torch.ops.rasterize")
     assert not _forbidden("torch")
+
+
+def test_step_loops_know_no_renderer():
+    """utils/cuda_graphs.py (every device-resident loop's StepLoop) imports
+    nothing of the render layer or of the compositors: the loops that
+    render bracket their own runs with the driver's overflow guard."""
+    path = REPO / "instantsplat_tpu_torch" / "utils" / "cuda_graphs.py"
+    bad = [m for m in _imported_modules(path)
+           if m.startswith("instantsplat_tpu_torch.render")
+           or m.startswith("instantsplat_tpu_torch.ops.rasterize")]
+    assert not bad, f"utils/cuda_graphs.py imports {bad}"

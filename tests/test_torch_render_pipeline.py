@@ -398,7 +398,7 @@ def test_render_cli_refuses_without_card_or_with_devices(slice_runs,
 def test_resolve_backend_times_dense_against_the_candidate(monkeypatch):
     """auto: one warm and one timed forward of each candidate, the faster
     kept; any other value passes through."""
-    from instantsplat_tpu_torch.pipelines import trainer as tr
+    from instantsplat_tpu_torch.render import driver
 
     arrays, M, gt, pose0 = refine_case()
     g = GaussianModel(**{f: torch.tensor(v) for f, v in arrays.items()},
@@ -409,7 +409,7 @@ def test_resolve_backend_times_dense_against_the_candidate(monkeypatch):
     bg = torch.zeros(3)
     assert render_pipeline.resolve_backend(g, cam, pose, bg,
                                            "oracle") == "oracle"
-    cand = tr._binned_candidate(g, cam, pose)
+    cand = driver.capacity_candidate(g, cam, pose)
     assert cand is not None
     seen = []
     real = render_pipeline.render

@@ -285,10 +285,10 @@ def test_aligner_is_bit_equal_to_eager():
 
 
 @pytest.fixture
-def fresh_guard(monkeypatch):
-    guard = driver._OverflowGuard()
-    monkeypatch.setattr(driver, "_guard", guard)
-    return guard
+def fresh_guard():
+    driver.reset_overflow_guard()
+    yield
+    driver.reset_overflow_guard()
 
 
 def _backends_by_iteration(monkeypatch, first_iter=0):
@@ -313,10 +313,10 @@ def test_demoting_block_runs_dense(scene, monkeypatch, capsys, fresh_guard):
     _, info = scene
     arrays = _start(info, seed=3)
     g = gaussians_from_numpy(arrays, 2, device="cpu")
-    base = tr._binned_candidate(g, info.cameras[0])
+    base = driver.capacity_candidate(g, info.cameras[0])
     assert base is not None
     answers = iter([base, None])
-    monkeypatch.setattr(tr, "_binned_candidate",
+    monkeypatch.setattr(driver, "capacity_candidate",
                         lambda params, camera: next(answers))
     monkeypatch.setattr(tr, "_REPROBE_EVERY", 8)
     now = [0.0]
@@ -367,14 +367,13 @@ def test_block_overflow_demotes_at_block_end(scene, monkeypatch, caplog,
                     TrainerConfig(iterations=6, log_every=3,
                                   backend="pallas-tiled:1:1:1"))
     warned = [r for r in caplog.records if "auto-switching" in r.message]
-    assert len(warned) == 1 and len(fresh_guard.demoted) == 1
+    assert len(warned) == 1 and len(driver.demoted()) == 1
     assert len(seen) == 3  # block 1-3 on the lists, block 4-6 dense
     assert all(b == "pallas-tiled:1:1:1" for b in backends().values())
 
 
 def test_step_loop_on_the_cpu_is_a_python_loop():
-    """run(n) calls the step n times and returns its last output; a flag
-    recorded in the block is read at its end."""
+    """run(n) calls the step n times and returns its last output."""
     calls = []
     loop = StepLoop(lambda: calls.append(1) or torch.tensor(len(calls)),
                     "cpu", "test")

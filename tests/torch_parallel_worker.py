@@ -190,24 +190,24 @@ def case_block_overflow(inp, mesh):
     import logging
 
     from instantsplat_tpu_torch.opt.gaussian_opt import OptimizationConfig
-    from instantsplat_tpu_torch.parallel import sharding
     from instantsplat_tpu_torch.pipelines import trainer as tr
     from instantsplat_tpu_torch.render import driver
 
     backends, warned = [], []
-    real_rows = sharding.rows_local
+    real_lists = driver.row_block_lists
 
-    def rows_local(packed, rank, ndev, h, w, backend, chunk):
-        backends.append(backend)
-        return real_rows(packed, rank, ndev, h, w, backend, chunk)
+    def row_block_lists(packed, rows, width, backend, group=None):
+        lists = real_lists(packed, rows, width, backend, group)
+        backends.append("pallas" if lists is None else backend)
+        return lists
 
     class Catch(logging.Handler):
         def emit(self, record):
             warned.append(record.getMessage())
 
-    guard, driver._guard = driver._guard, driver._OverflowGuard()
-    sharding.rows_local, catch = rows_local, Catch(logging.WARNING)
-    driver._log.addHandler(catch)
+    driver.reset_overflow_guard()
+    driver.row_block_lists, catch = row_block_lists, Catch(logging.WARNING)
+    logging.getLogger(driver.__name__).addHandler(catch)
     g, cams = scene(inp, "t11s")
     try:
         tr.train_joint(
@@ -215,10 +215,11 @@ def case_block_overflow(inp, mesh):
             trainer_cfg=tr.TrainerConfig(
                 iterations=6, backend="pallas-binned:1:2", chunk=64,
                 log_every=3, seed=5, n_devices=2))
-        demoted = sorted(map(str, driver._guard.demoted))
+        demoted = sorted(map(str, driver.demoted()))
     finally:
-        driver._guard, sharding.rows_local = guard, real_rows
-        driver._log.removeHandler(catch)
+        driver.reset_overflow_guard()
+        driver.row_block_lists = real_lists
+        logging.getLogger(driver.__name__).removeHandler(catch)
     return {"overflow/demoted": np.array(demoted),
             "overflow/warned": np.array(warned),
             "overflow/backends": np.array(backends)}
