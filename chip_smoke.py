@@ -15,9 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    sm_90a, one nvcc per source, started together: rasterize.cu (KR, the
    rectangle pass k1_rects; K1 dense forward; K2 dense backward) and
    rasterize_lists.cu (K3/K4 binned, K5/K6 tiled), which share
-   compositor.cuh, knn.cu (knn3, the initial scales' KNN) and frontend.cu
-   (the front end's forward, backward and pose sum); print ptxas's
-   report.
+   compositor.cuh, knn.cu (knn3, the initial scales' KNN), frontend.cu
+   (the front end's forward, backward and pose sum) and adam.cu (stage 2's
+   Adam step); print ptxas's report.
 3. Kernel against plain version at the golden-case shape (64x48, 400
    splats) and a ragged mid size (250x187, 20k splats), for the dense
    kernels and for the binned and tiled ones at capacities sized for the
@@ -48,7 +48,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    runs in front of them too; a demotion by the overflow guard fails the
    run. Each run launches knn3 exactly once (create_from_pcd's initial
    scales), and the front end's forward, backward and pose sum once an
-   iteration (the auto run's probe adds forwards of its sizing renders).
+   iteration (the auto run's probe adds forwards of its sizing renders);
+   the dense and the explicit runs launch adam_flags and adam_update once
+   an iteration.
    A second dense run measures the
    run-to-run spread. Every loss must fall and each curve must stay within
    LOSS_RTOL of the dense run's.
@@ -80,7 +82,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    of each entry point a forward and backward, against compute_columns
    and its autograd (radius and valid exactly), the same bits a second
    call, their replayed times beside the plain version's, and the byte
-   bound.
+   bound. Then stage 2's Adam step (csrc/adam.cu) on the fields of the
+   same two clouds at SH 0 (features_rest's gradient all zero, as the
+   cells train) and SH 3, pp_optimizer with per-point rates: one fused
+   step against apply_step_plain from the same state, parameters and
+   moments bit for bit; the step's, each kernel's (torch.profiler over a
+   replay) and the plain step's replayed times, the plain step's eager
+   time, and the byte bound.
 6. Stages 3 and 5 on the model of phase 4's first dense run, through
    instantsplat_tpu_torch.cli.render.main and cli.metrics.main: the train
    views; N_TEST_VIEWS test views, each refined from a start 2 degrees and
@@ -280,7 +288,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    checks each captured run's replays (all iterations but the first
    WARMUP of each graph).
 
-The last lines are one JSON object {"kernels": [...]} with thirteen entries,
+The last lines are one JSON object {"kernels": [...]} with seventeen entries,
 the nvidia-smi line, and {"ok": true, "device": {...}}. The seven
 compositor kernels' entries each hold `launches`, from its own path's
 run in phase 4, `launches_phase8`, from phase 8's in-process runs: its
@@ -291,7 +299,8 @@ phase 9's densification check, `launches_phase10`, 0 for every kernel, and
 two knn3 entries, one a cloud, hold the same keys, `launches` from phase
 4's dense run (one), and besides `launches_phase5`, phase 5's own calls
 at that cloud, counted from 0. The four FE entries (forward and backward
-at each cloud) hold `launches` from phase 4's dense run and None in the
+at each cloud) and the four ADAM entries (adam_flags and adam_update at
+each cloud) hold `launches` from phase 4's dense run and None in the
 later phases' keys. A launch is one on
 the device: a kernel launched by a replay of a captured CUDA graph counts
 once per replay (rasterize_pallas.Kernel.replayed); its wrapper, called
@@ -325,7 +334,8 @@ KR_OPS_PER_SPLAT = 35
 TRAIN_ITERS = 200
 N_POINTS = 100_000
 H, W = 384, 512
-SOURCES = ("rasterize.cu", "rasterize_lists.cu", "knn.cu", "frontend.cu")
+SOURCES = ("rasterize.cu", "rasterize_lists.cu", "knn.cu", "frontend.cu",
+           "adam.cu")
 # the benchmark's derived clouds (benchmark/traffic/train_{3,12}v.json at
 # 512x288): views, arc, the points stage 1 keeps
 KNN_CLOUDS = ((3, 0.15, 431_795), (12, 0.3, 1_429_807))
@@ -343,6 +353,14 @@ FRONTEND_BWD_BYTES = 56 + 40 + 56 + 180
 # the kernel's rows against compute_columns' on the card: both round each
 # operation alone in the same order, with the same expf/logf/rsqrtf
 FRONTEND_RTOL = 1e-6
+# adam_flags' and adam_update's launches ({"ADAM flags", "ADAM update"}) in
+# the last run_cli call
+ADAM_LAUNCHES: dict = {}
+# the fields of stage 2's Adam step a Gaussian (xyz, features_dc,
+# features_rest at SH 3, scaling, rotation, opacity); cam_poses holds a
+# 7-vector a view
+ADAM_FIELDS = dict(xyz=(3,), features_dc=(1, 3), features_rest=(15, 3),
+                   scaling=(3,), rotation=(4,), opacity=(1,))
 # float operations per point pair in knn3: 3 differences, 3 products and
 # 2 sums (the compare against the third best not counted)
 KNN_OPS_PER_PAIR = 8
@@ -1020,8 +1038,9 @@ def run_cli(main, argv):
     """Run a CLI main with the launch counts set to 0 just before and read
     just after, each run with no capacity signature checked or demoted.
     -> (what main returned, its stdout, seconds, launches {KR, K1..K6,
-    knn3}, the overflow guard's demotion warnings). The front end's
-    launches of the same run are left in FRONTEND_LAUNCHES."""
+    knn3}, the overflow guard's demotion warnings). The front end's and
+    Adam's launches of the same run are left in FRONTEND_LAUNCHES and
+    ADAM_LAUNCHES."""
     import torch
 
     from instantsplat_tpu_torch.render import driver
@@ -1029,12 +1048,13 @@ def run_cli(main, argv):
     driver.reset_overflow_guard()
     kernels = kernel_table()
     front = frontend_kernels()
+    steps = adam_kernels()
     warns = _Warnings()
     guard_log = logging.getLogger("instantsplat_tpu_torch.render.driver")
     guard_log.addHandler(warns)
     tee = _Tee(sys.stdout)
     try:
-        for k in (*kernels.values(), *front.values()):
+        for k in (*kernels.values(), *front.values(), *steps.values()):
             k.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1045,6 +1065,8 @@ def run_cli(main, argv):
         launches = {name: k.launches for name, k in kernels.items()}
         FRONTEND_LAUNCHES.clear()
         FRONTEND_LAUNCHES.update({n: k.launches for n, k in front.items()})
+        ADAM_LAUNCHES.clear()
+        ADAM_LAUNCHES.update({n: k.launches for n, k in steps.items()})
     finally:
         guard_log.removeHandler(warns)
     return result, "".join(tee.text), seconds, launches, warns.messages
@@ -1497,6 +1519,169 @@ def frontend_shape(dev, path_launches: dict) -> list:
         del g, leaves, rows, got, want, ref, out, grads, again
         torch.cuda.empty_cache()
     return rows_out
+
+
+def adam_kernels() -> dict:
+    """{name: Kernel} of stage 2's Adam step (csrc/adam.cu)."""
+    from instantsplat_tpu_torch.ops import adam
+
+    return {"ADAM flags": adam.ADAM_FLAGS, "ADAM update": adam.ADAM_UPDATE}
+
+
+def adam_profiled_ms(fn, calls: int) -> dict:
+    """{"flags", "update"}: each Adam kernel's mean device ms a launch,
+    from torch.profiler over one replay of a CUDA graph of `calls` calls of
+    `fn` (the mean over the launches the trace holds: late in a long
+    process it may drop some)."""
+    import torch
+
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+    torch.cuda.synchronize()
+    graph.replay()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        for what in ("flags", "update"):
+            if f"adam_{what}_kernel" in e.key:
+                us = getattr(e, "device_time_total", None)
+                if us is None:  # PyTorch before 2.4
+                    us = e.cuda_time_total
+                total[what] = total.get(what, 0.0) + us / 1e3
+                count[what] = count.get(what, 0) + e.count
+    if count != dict.fromkeys(("flags", "update"), calls):
+        log(f"Adam kernels: the profiler holds {count} launches of "
+            f"{calls} each")
+    return {what: total[what] / count[what] for what in total}
+
+
+def adam_shape(dev, path_launches: dict) -> list:
+    """Phase 5's ADAM rows: stage 2's Adam step on the fields of the
+    benchmark's two derived clouds (KNN_CLOUDS' Gaussians and views,
+    features_rest at SH 3; pp_optimizer with per-point rates; random
+    parameters and gradients of a fixed seed), at SH 0 (features_rest's
+    gradient all zero: its group skipped) and SH 3. Each case: one fused
+    step (ops/adam.fused_step) against one apply_step_plain step from the
+    same state, parameters and moments bit for bit, and one launch of each
+    kernel; the step's device ms (20 steps replayed from a CUDA graph),
+    each kernel's (torch.profiler over a replay), the plain step's
+    replayed and eager (CUDA events) ms; and the byte bound from the
+    case's elements: adam_flags reads every gradient (4 B), adam_update
+    reads p, g, m, v and writes p, m, v (28 B) an element of a live group,
+    reads p, m, v and writes p (16 B) one of a skipped group, and reads a
+    per-point rate (4 B) a Gaussian; over 3.35 TB/s. The rows are the
+    SH 0 cases', as the cells train; the SH 3 cases are printed.
+    `path_launches`: the Adam kernels' launches in phase 4's dense run."""
+    import numpy as np
+    import torch
+
+    from instantsplat_tpu_torch.models.gaussians import (PARAM_FIELDS,
+                                                         GaussianModel)
+    from instantsplat_tpu_torch.opt.gaussian_opt import (AdamState,
+                                                         GaussianOptimizer,
+                                                         OptimizationConfig)
+    from instantsplat_tpu_torch.utils.cuda_graphs import to_device
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    rows = []
+    for views, _, n in KNN_CLOUDS:
+        shapes = {f: (n, *s) for f, s in ADAM_FIELDS.items()}
+        shapes["cam_poses"] = (views, 7)
+        for degree in (0, 3):
+            gen = torch.Generator(device=dev).manual_seed(views + degree)
+            g = GaussianModel(**{f: torch.randn(s, generator=gen, device=dev)
+                                 for f, s in shapes.items()},
+                              max_sh_degree=3)
+            opt = GaussianOptimizer(OptimizationConfig(
+                pp_optimizer=True, optim_pose=True), total_iterations=1000)
+            state = opt.init(g, confidence_lr=np.random.default_rng(
+                views).uniform(1.0, 100.0, size=n))
+            grads = {f: torch.randn(s, generator=gen, device=dev) * 1e-3
+                     for f, s in shapes.items()}
+            if degree == 0:
+                grads["features_rest"].zero_()
+            row = to_device(opt.step_scalars([500], 500), dev)[0]
+            gp = GaussianModel(**{f: getattr(g, f).clone()
+                                  for f in PARAM_FIELDS}, max_sh_degree=3)
+            sp = AdamState(m={f: t.clone() for f, t in state.m.items()},
+                           v={f: t.clone() for f, t in state.v.items()},
+                           step=state.step, per_point_lr=state.per_point_lr)
+            for k in adam_kernels().values():
+                k.launches = 0
+            opt.apply_step(g, grads, state, row)
+            opt.apply_step_plain(gp, grads, sp, row)
+            torch.cuda.synchronize()
+            launched = [k.launches for k in adam_kernels().values()]
+            if launched != [1, 1]:
+                fail(f"Adam at {n} Gaussians, SH {degree}: launches "
+                     f"{launched} for one step, expected one each")
+            for f in PARAM_FIELDS:
+                for what, a, b in (("parameters", getattr(g, f),
+                                    getattr(gp, f)),
+                                   ("first moment", state.m[f], sp.m[f]),
+                                   ("second moment", state.v[f], sp.v[f])):
+                    if not torch.equal(bits(a), bits(b)):
+                        fail(f"Adam at {n} Gaussians, SH {degree}: the "
+                             f"{what} of {f} differ from apply_step_plain's")
+            steps = 20
+            fused_ms = graph_ms(lambda: opt.apply_step(g, grads, state, row),
+                                steps)
+            kernel_ms = adam_profiled_ms(
+                lambda: opt.apply_step(g, grads, state, row), steps)
+            plain_ms = graph_ms(
+                lambda: opt.apply_step_plain(gp, grads, sp, row), steps)
+            plain_eager_ms = cuda_ms(
+                lambda: opt.apply_step_plain(gp, grads, sp, row), steps)
+            elems = {f: math.prod(s) for f, s in shapes.items()}
+            live = 28 if degree else 16
+            flags_b = 4 * sum(elems.values())
+            update_b = 4 * n + sum(
+                (live if f == "features_rest" else 28) * k
+                for f, k in elems.items())
+            bound = {what: b / PEAK_BYTES_S * 1e3
+                     for what, b in (("flags", flags_b),
+                                     ("update", update_b))}
+            step_bound = bound["flags"] + bound["update"]
+            log(f"Adam at {n} Gaussians ({views} views, SH {degree}): step "
+                f"{fused_ms:.4f} ms in CUDA-graph replays (flags "
+                f"{kernel_ms.get('flags', float('nan')):.4f}, update "
+                f"{kernel_ms.get('update', float('nan')):.4f} by "
+                f"torch.profiler); plain step {plain_ms:.3f} ms replayed, "
+                f"{plain_eager_ms:.3f} ms eager by CUDA events; bound "
+                f"{step_bound:.4f} ms ({(flags_b + update_b) / n:.1f} B a "
+                f"Gaussian over 3.35 TB/s) = "
+                f"{step_bound / fused_ms * 100:.1f}% (flags "
+                f"{bound['flags'] / kernel_ms.get('flags', float('inf')) * 100:.1f}%"
+                f", update "
+                f"{bound['update'] / kernel_ms.get('update', float('inf')) * 100:.1f}%)"
+                "; bit-equal to apply_step_plain")
+            if degree == 0:
+                for what, nbytes in (("flags", flags_b), ("update", update_b)):
+                    name = f"ADAM {what}"
+                    rows.append(dict(
+                        name=f"{name} {views}v", route="cuda",
+                        source="instantsplat_tpu_torch/csrc/adam.cu",
+                        replaces="none (instantsplat_tpu/opt/gaussian_opt.py: "
+                                 "jnp Adam)",
+                        launches=path_launches[name], max_rel_err=0.0,
+                        ms=kernel_ms.get(what),
+                        plain_ms=plain_ms if what == "update" else None,
+                        bound_ms=bound[what],
+                        bound_by=f"bytes ({nbytes / n:.1f} B a Gaussian)",
+                        library_ms=None))
+            del g, gp, state, sp, grads
+            torch.cuda.empty_cache()
+    return rows
 
 
 def pose_error(w2c, gt_c2w) -> float:
@@ -4914,9 +5099,15 @@ def main():
             fail(f"dense run: front-end launches {FRONTEND_LAUNCHES}, "
                  f"expected {TRAIN_ITERS} each")
         log(f"train dense: front-end launches {FRONTEND_LAUNCHES}")
+        # Adam: the flags and the update once an iteration (pp_optimizer)
+        if ADAM_LAUNCHES != dict.fromkeys(adam_kernels(), TRAIN_ITERS):
+            fail(f"dense run: Adam launches {ADAM_LAUNCHES}, expected "
+                 f"{TRAIN_ITERS} each")
+        log(f"train dense: Adam launches {ADAM_LAUNCHES}")
         # launches of each kernel on its own path's run
         path_launches = {k: launches[k] for k in ("KR", "K1", "K2", "knn3")}
         path_launches.update(FRONTEND_LAUNCHES)
+        path_launches.update(ADAM_LAUNCHES)
         dense_losses = {it: m["loss"] for it, m in history}
 
         p0, cams = initial_params(scene, dev)
@@ -4956,7 +5147,8 @@ def main():
             fail(f"auto run: front-end launches {FRONTEND_LAUNCHES}, "
                  f"expected {TRAIN_ITERS} backward and pose sums and at "
                  "least as many forwards")
-        log(f"train auto: front-end launches {FRONTEND_LAUNCHES}")
+        log(f"train auto: front-end launches {FRONTEND_LAUNCHES}; Adam "
+            f"launches {ADAM_LAUNCHES}")
         won = ("dense" if launches["K1"] > TRAIN_ITERS // 2 else
                "tiled" if launches["K5"] > TRAIN_ITERS // 2 else "binned")
         log(f"train auto: backend that ran most iterations: {won}")
@@ -4984,6 +5176,9 @@ def main():
                                                   TRAIN_ITERS):
                 fail(f"{kind} run: front-end launches {FRONTEND_LAUNCHES}, "
                      f"expected {TRAIN_ITERS} each")
+            if ADAM_LAUNCHES != dict.fromkeys(adam_kernels(), TRAIN_ITERS):
+                fail(f"{kind} run: Adam launches {ADAM_LAUNCHES}, expected "
+                     f"{TRAIN_ITERS} each")
             if any(launches[k] != TRAIN_ITERS for k in ("KR", kf, kb)):
                 fail(f"{kind} run: KR/{kf}/{kb} launched {launches['KR']}/"
                      f"{launches[kf]}/{launches[kb]} times, expected "
@@ -4997,6 +5192,7 @@ def main():
         rows = training_shape(params, cam, dev, path_launches)
         rows += knn_shape(dev, path_launches["knn3"])
         rows += frontend_shape(dev, path_launches)
+        rows += adam_shape(dev, path_launches)
 
         log(f"{time.time() - t_start:.0f} s since the start")
         # ---- phase 6: stages 3 and 5 on the dense run's model ------------
@@ -5034,7 +5230,7 @@ def main():
             kind: backend for kind, (backend, _) in explicit.items()},
             host_model, dev, smi)
         del host_model
-        for row in rows:  # the FE rows are counted in phases 4 and 5 only
+        for row in rows:  # the FE and ADAM rows: phases 4 and 5 only
             key = row["name"].split()[0]
             row["launches_phase8"] = phase8.get(key)
             row["launches_phase9"] = phase9.get(key)

@@ -21,7 +21,9 @@ pytrees); the learning rates and bias corrections are computed in float32,
 as JAX computes them, so both packages take the same steps. They reach the
 update as a device table (`step_scalars`, one row per step), never as host
 floats, so a block of steps can be captured in a CUDA graph and replayed
-(pipelines/trainer.py::make_train_scan).
+(pipelines/trainer.py::make_train_scan). On CUDA tensors the update is
+ops/adam.py's two launches (csrc/adam.cu), with `apply_step_plain`'s bits;
+elsewhere it is `apply_step_plain`, PyTorch ops on each group.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from instantsplat_tpu_torch.models.gaussians import PARAM_FIELDS, GaussianModel
+from instantsplat_tpu_torch.ops import adam
 from instantsplat_tpu_torch.utils.cuda_graphs import to_device
 from instantsplat_tpu_torch.utils.schedules import expon_lr
 
@@ -169,7 +172,18 @@ class GaussianOptimizer:
                    state: AdamState, scalars: torch.Tensor) -> None:
         """The update of `step` from its row of `step_scalars`, a device
         tensor: device work only (no host read, no host scalar), so it can
-        be captured. Leaves state.step to the caller."""
+        be captured. Leaves state.step to the caller. On CUDA tensors
+        ops/adam.fused_step, elsewhere apply_step_plain."""
+        if adam.serves(params.xyz):
+            adam.fused_step(self.cfg, params, grads, state, scalars)
+        else:
+            self.apply_step_plain(params, grads, state, scalars)
+
+    @torch.no_grad()
+    def apply_step_plain(self, params: GaussianModel, grads: dict,
+                         state: AdamState, scalars: torch.Tensor) -> None:
+        """apply_step as PyTorch ops on each group: the CPU route, and the
+        version the fused kernels are held to."""
         cfg = self.cfg
         sq_bc2 = scalars[-1]
         for i, name in enumerate(PARAM_FIELDS):

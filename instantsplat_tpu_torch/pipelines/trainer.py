@@ -41,10 +41,13 @@ blocks; `train.size_caps` inside driver.capacity_candidate), `train.upload`
 (a block's view and Adam tables), `train.marks` (their read, tracing
 on), `train.log` (the metrics' read and progress_cb at a log); the
 counters `train.iterations.<family>` (by backend family, `eager` for the
-eager loop), `train.reprobes`, `train.resizes`, `train.switches`. With
+eager loop), `train.reprobes`, `train.resizes`, `train.switches`,
+`adam.fused_steps` (a block's steps taken by ops/adam.py's kernels). With
 tracing on, each make_train_scan block marks its start and each step its
 STEP_MARKS on the device, and the block's end adds its PHASES to the
-phase table.
+phase table and, from ops/adam.py's skip table zeroed at the block's
+start, `adam.skipped.<field>`: the block's steps in which that group's
+whole-tensor zero-gradient skip held.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from instantsplat_tpu_torch.opt.gaussian_opt import (
     GaussianOptimizer,
     OptimizationConfig,
 )
+from instantsplat_tpu_torch.ops import adam
 from instantsplat_tpu_torch.ops.losses import photometric_loss, psnr
 from instantsplat_tpu_torch.render import driver
 from instantsplat_tpu_torch.render.driver import render
@@ -270,10 +274,14 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
     def train_block(params, opt_state, view_ids, iterations, active_sh: int):
         k = len(iterations)
         loop, bufs = statics(params, opt_state, k, active_sh)
+        fused = adam.serves(params.xyz)
         with profiling.annotate("train.upload"):
             bufs.counter.zero_()
             with profiling.marking(bufs.marks, bufs.counter):
                 profiling.mark("block")
+            if fused and bufs.traced:
+                skipped = adam.skip_table(params.xyz.device)
+                skipped.zero_()
             bufs.table[:k].copy_(to_device(optimizer.step_scalars(
                 iterations, opt_state.step + 1), dev))
             bufs.views[:k].copy_(to_device(np.asarray(view_ids), dev,
@@ -287,11 +295,16 @@ def make_train_scan(optimizer: GaussianOptimizer, cameras: Camera, bg,
         with driver.recording_overflow(bufs.flags):
             metrics = loop.run(k)
         opt_state.step += k
+        if fused:
+            profiling.count("adam.fused_steps", k)
         if bufs.marks is not None:
             with profiling.annotate("train.marks"):
                 profiling.add_step_marks(
                     "make_train_scan", family,
                     bufs.marks.times[:k].cpu().numpy(), MARKS, PHASES)
+                if fused:
+                    for name, n in zip(PARAM_FIELDS, skipped.tolist()):
+                        profiling.count(f"adam.skipped.{name}", n)
         return params, opt_state, {n: v.clone() for n, v in metrics.items()}
 
     return train_block

@@ -4,7 +4,7 @@ Gaussian parameter, on the same seeded numpy inputs (rtol 1e-5). Then the
 two routes of the port's own front end: on CPU tensors
 prepare_packed_splats is compute_columns, the CUDA route's wrapper
 (frontend_rows) refuses what its kernels cannot read and names the fault,
-and the kernels' source, built for the host (tests/torch_frontend_host.py),
+and the kernels' source, built for the host (tests/torch_cuda_host.py),
 gives compute_columns' columns and autograd's gradients."""
 
 import jax
@@ -19,7 +19,7 @@ from instantsplat_tpu_torch.models.gaussians import GaussianModel
 from instantsplat_tpu_torch.ops import frontend
 from instantsplat_tpu_torch.render.driver import prepare_packed_splats
 from torch_frontend_cases import frontend_scene, packed_plain
-from torch_frontend_host import host_library, on_host
+from torch_cuda_host import host_library, on_host
 
 # the test workers share the machine's cores: two intra-op threads each
 torch.set_num_threads(2)
@@ -185,7 +185,8 @@ def test_frontend_rows_refuses_and_names_the_fault(case):
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    return host_library(tmp_path_factory.mktemp("frontend_host"))
+    return host_library("frontend.cu",
+                        tmp_path_factory.mktemp("frontend_host"))
 
 
 @pytest.mark.parametrize("degree", [0, 1, 2, 3])
@@ -196,7 +197,7 @@ def test_kernel_source_on_the_host_matches_compute_columns(
     gradients of every field and of the pose (pose-only too) against
     autograd's; two blocks and a ragged one, so the pose sums cross
     blocks."""
-    on_host(monkeypatch, host_lib)
+    on_host(monkeypatch, "frontend.cu", host_lib, frontend)
     g, pose, fx, fy, cx, cy = frontend_scene(700, H, W, 20 + degree, "cpu",
                                              degenerate=False,
                                              identity=degree % 2 == 1)

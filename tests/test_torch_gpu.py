@@ -1,7 +1,9 @@
 """Tests that need the CUDA card: the kernels KR/K1/K2 (dense), K3/K4
 (binned) and K5/K6 (tiled) against their plain versions, the KNN kernel
 knn3 against its plain version and a float64 brute force, the front
-end's kernels against compute_columns and autograd, the render
+end's kernels against compute_columns and autograd, stage 2's Adam
+kernels against apply_step_plain (bit for bit, eager and captured, and
+what a replayed training step launches), the render
 paths on the card, stage 1's TINY MASt3R and golden aligner case on the
 card against the CPU, init_test_pose on the card against the CPU, a
 live viewer render on the card, and the sparse-alignment family:
@@ -1246,3 +1248,244 @@ def test_frontend_step_launches(cuda):
     assert any("frontend_forward_kernel" in n for n in names)
     assert any("frontend_backward_kernel" in n for n in names)
     assert 0 < len(kernels) < 250, len(kernels)
+
+
+# ---- Adam: csrc/adam.cu against apply_step_plain -------------------------
+
+
+N_3V = 431_795  # the benchmark's 3-view cloud (benchmark/configs, PERF.md §4)
+
+
+def _adam_case(cuda, pp, n=N_3V, seed=0):
+    """The benchmark's field shapes at SH 3 (features_rest [n, 15, 3], three
+    poses), the optimizer, a fresh state with per-point rates under
+    pp_optimizer, and a generator of each step's gradients."""
+    from instantsplat_tpu_torch.opt.gaussian_opt import (
+        GaussianOptimizer, OptimizationConfig)
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = dict(xyz=(n, 3), features_dc=(n, 1, 3),
+                  features_rest=(n, 15, 3), scaling=(n, 3), rotation=(n, 4),
+                  opacity=(n, 1), cam_poses=(3, 7))
+    g = GaussianModel(**{f: torch.randn(s, generator=gen, device=cuda)
+                         for f, s in shapes.items()}, max_sh_degree=3)
+    opt = GaussianOptimizer(OptimizationConfig(pp_optimizer=pp,
+                                               optim_pose=True),
+                            total_iterations=1000)
+    rng = np.random.default_rng(seed)
+    state = opt.init(g, confidence_lr=rng.uniform(1.0, 100.0, size=n)
+                     if pp else None)
+
+    def grads(degree):
+        out = {f: torch.randn(s, generator=gen, device=cuda) * 1e-3
+               for f, s in shapes.items()}
+        if degree == 0:  # SH 0 reads no features_rest: an all-zero gradient
+            out["features_rest"].zero_()
+        return out
+
+    return g, opt, state, grads
+
+
+def _adam_copy(g, state):
+    from instantsplat_tpu_torch.opt.gaussian_opt import AdamState
+
+    return (GaussianModel(**{f: getattr(g, f).clone() for f in PARAM_FIELDS},
+                          max_sh_degree=g.max_sh_degree),
+            AdamState(m={f: t.clone() for f, t in state.m.items()},
+                      v={f: t.clone() for f, t in state.v.items()},
+                      step=state.step, per_point_lr=state.per_point_lr))
+
+
+def _assert_adam_bits(a, sa, b, sb):
+    for f in PARAM_FIELDS:
+        assert torch.equal(getattr(a, f).view(torch.int32),
+                           getattr(b, f).view(torch.int32)), ("p", f)
+        assert torch.equal(sa.m[f].view(torch.int32),
+                           sb.m[f].view(torch.int32)), ("m", f)
+        assert torch.equal(sa.v[f].view(torch.int32),
+                           sb.v[f].view(torch.int32)), ("v", f)
+
+
+@pytest.mark.parametrize("pp", [True, False])
+@pytest.mark.parametrize("degree", [0, 3])
+def test_adam_kernels_match_plain(cuda, degree, pp):
+    """50 steps of apply_step (the fused kernels on CUDA tensors) against
+    50 of apply_step_plain on the benchmark's 3-view fields, each step's
+    factors from step_scalars: parameters and both moments bit for bit; at
+    degree 0 with pp_optimizer the skip table counts 50 skipped steps of
+    features_rest and none of any other group."""
+    from instantsplat_tpu_torch.ops import adam
+    from instantsplat_tpu_torch.utils.cuda_graphs import to_device
+
+    g, opt, state, grads = _adam_case(cuda, pp)
+    gp, sp = _adam_copy(g, state)
+    table = to_device(opt.step_scalars(range(1, 51), 1), cuda)
+    skipped = adam.skip_table(g.xyz.device)
+    skipped.zero_()
+    launches = adam.ADAM_UPDATE.launches
+    for i in range(50):
+        step = grads(degree)
+        opt.apply_step(g, step, state, table[i])
+        opt.apply_step_plain(gp, step, sp, table[i])
+    assert adam.ADAM_UPDATE.launches == launches + 50
+    _assert_adam_bits(g, state, gp, sp)
+    want = [50 * (pp and degree == 0 and f == "features_rest")
+            for f in PARAM_FIELDS]
+    assert skipped.tolist() == want
+
+
+def test_adam_captured_steps_match_plain(cuda):
+    """One captured CUDA graph of apply_step, each replay reading its row
+    of the step table by a device counter (nothing of the host frozen in
+    it), replayed 20 times against 20 eager apply_step_plain steps:
+    parameters and moments bit for bit. One replay runs the two Adam
+    kernels besides the row's gather and the counter's increment: no other
+    elementwise kernel, no copy."""
+    import json
+
+    from instantsplat_tpu_torch.ops import adam
+    from instantsplat_tpu_torch.utils.cuda_graphs import to_device
+
+    g, opt, state, grads = _adam_case(cuda, True, seed=1)
+    step_grads = grads(0)
+    table = to_device(opt.step_scalars(range(1, 21), 1), cuda)
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+    gp, sp = _adam_copy(g, state)
+
+    def step():
+        opt.apply_step(g, step_grads, state, table.index_select(0, counter)[0])
+        counter.add_(1)
+
+    s0 = _adam_copy(g, state)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    captured = (adam.ADAM_FLAGS.captured, adam.ADAM_UPDATE.captured)
+    with torch.cuda.graph(graph):
+        step()
+    assert (adam.ADAM_FLAGS.captured, adam.ADAM_UPDATE.captured) == (
+        captured[0] + 1, captured[1] + 1)
+    with torch.no_grad():  # back to the start: the warm-up took a step
+        for f in PARAM_FIELDS:
+            getattr(g, f).copy_(getattr(s0[0], f))
+            state.m[f].copy_(s0[1].m[f])
+            state.v[f].copy_(s0[1].v[f])
+        counter.zero_()
+    for _ in range(20):
+        graph.replay()
+    for i in range(20):
+        opt.apply_step_plain(gp, step_grads, sp, table[i])
+    torch.cuda.synchronize()
+    _assert_adam_bits(g, state, gp, sp)
+    counter.zero_()  # the table's first row again
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/replay.json"
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    ran = sorted(e["name"] for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy"))
+    ours = [n for n in ran if "adam_" in n]
+    assert len(ours) == 2, ran
+    assert "adam_flags_kernel" in ours[0] and "adam_update_kernel" in ours[1]
+    # besides: the step's gather of its row and its counter's increment
+    assert len(ran) == 4 and not any("Memcpy" in n for n in ran), ran
+
+
+def test_captured_fused_block_matches_plain_steps(cuda, monkeypatch):
+    """A make_train_scan block of 8 replays (the fused Adam captured in the
+    step) against 8 eager train_step steps whose Adam is apply_step_plain,
+    from one state: within twice the spread of two plain eager runs (K2
+    adds with atomics) plus 1e-6, by relative L2, as
+    test_captured_block_matches_eager judges."""
+    from instantsplat_tpu_torch.opt.gaussian_opt import GaussianOptimizer
+    from instantsplat_tpu_torch.pipelines.trainer import make_train_scan
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    k = 8
+    g, cam, stacked, opt, state, snapshot, restore = _scan_case(cuda)
+    s0 = snapshot()
+    block = make_train_scan(opt, stacked, torch.zeros(3, device=cuda), 0.2,
+                            "pallas", 256)
+    block(g, state, [0] * (WARMUP + 1), range(1, WARMUP + 2), 0)  # capture
+    restore(s0)
+    replays = StepLoop.replays
+    block(g, state, [0] * k, range(1, k + 1), 0)
+    assert StepLoop.replays - replays == k
+    captured = snapshot()[0]
+    monkeypatch.setattr(GaussianOptimizer, "apply_step",
+                        GaussianOptimizer.apply_step_plain)
+    plain = []
+    for _ in range(2):
+        restore(s0)
+        _eager_steps(g, cam, opt, state, range(1, k + 1))
+        plain.append(snapshot()[0])
+    spread = _rel_l2(plain[1], plain[0])
+    got = _rel_l2(captured, plain[0])
+    for f in PARAM_FIELDS:
+        assert got[f] <= 2 * spread[f] + 1e-6, (f, got[f], spread[f])
+
+
+def test_replayed_step_launches_two_adam_kernels(cuda, monkeypatch):
+    """A replay of make_train_scan's captured step launches adam_flags and
+    adam_update once each and none of the plain step's chain: against the
+    same step captured with apply_step_plain (captured first), every other
+    kernel of the fused replay is one the plain replay ran too, the plain
+    replay ran at least 100 kernels more (~18 a group) and 14 more copies
+    (each group's two copy_ back)."""
+    import collections
+    import json
+    import tempfile
+
+    from instantsplat_tpu_torch.ops import adam
+    from instantsplat_tpu_torch.pipelines.trainer import make_train_scan
+    from instantsplat_tpu_torch.utils.cuda_graphs import WARMUP, StepLoop
+
+    g, cam, stacked, opt, state, _, _ = _scan_case(cuda)
+    bg = torch.zeros(3, device=cuda)
+    loops = []
+    real = StepLoop._capture
+    monkeypatch.setattr(StepLoop, "_capture",
+                        lambda self: (loops.append(self), real(self))[1])
+    ran, it = {}, 1
+    for fused in (False, True):
+        monkeypatch.setattr(adam, "serves", lambda t, fused=fused: fused)
+        block = make_train_scan(opt, stacked, bg, 0.2, "pallas", 256)
+        block(g, state, [0] * (WARMUP + 1), range(it, it + WARMUP + 1), 0)
+        it += WARMUP + 1
+        loop = loops[-1]
+        per_replay = {k.name: n for k, n in loop.per_replay.items()}
+        assert (per_replay.get("adam_flags"), per_replay.get(
+            "adam_update")) == ((1, 1) if fused else (None, None))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            loop.graph.replay()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/replay.json")
+            with open(f"{tmp}/replay.json") as fh:
+                events = json.load(fh)["traceEvents"]
+        ran[fused] = {cat: collections.Counter(
+            e["name"] for e in events if e.get("cat") == cat)
+            for cat in ("kernel", "gpu_memcpy")}
+    fused_k, plain_k = ran[True]["kernel"], ran[False]["kernel"]
+    ours = {n: c for n, c in fused_k.items() if "adam_" in n}
+    assert sorted(c for c in ours.values()) == [1, 1], ours
+    assert any("adam_flags_kernel" in n for n in ours)
+    assert any("adam_update_kernel" in n for n in ours)
+    rest = fused_k - collections.Counter(ours)
+    assert not rest - plain_k, rest - plain_k
+    assert sum(plain_k.values()) - sum(rest.values()) >= 100, (
+        sum(plain_k.values()), sum(rest.values()))
+    assert (sum(ran[False]["gpu_memcpy"].values())
+            - sum(ran[True]["gpu_memcpy"].values())) >= 14, ran
